@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch/CUDA port (sdvpcmdecoder_tpu_torch).
 
-Builds the CUDA kernel of the STC-007 decode chain from csrc/, checks it
-against its plain torch version on the card, drives the chain at full PAL
-size (128 frames x 588 lines x 1152 px, NORMAL limits) through
-decode_frames, the audio masker and the WAV writer, and times the kernel,
-its plain version and the chain. Needs one NVIDIA GPU; from the
-repository root:
+Builds the CUDA kernels of the STC-007 decode chain from csrc/ (K1, the
+per-frame binarize, and K2, the per-group binarize: two entry points of one
+source), checks each against its plain torch version on the card, and
+drives three paths at full PAL size (588 lines x 1152 px, NORMAL limits):
+decode_frames on 128 frames through the audio masker and the WAV writer;
+K2 on single-frame groups; and the chip-resident round
+(steady_round_packed), 4 chained rounds of 16 frames on a staged 64-frame
+capture, once clean and once noisy with knocked-out lines. Times the
+kernels, their plain versions, the chain and the round. Needs one NVIDIA
+GPU; from the repository root:
 
     python3 chip_smoke.py
 
@@ -35,12 +39,17 @@ FRAMES = 128          # the slice's batch (bench.py device_only_fps)
 CHECK_FRAMES = 32     # K1-vs-plain checks at NORMAL
 INSANE_FRAMES = 8     # ... and at INSANE
 MODE_FRAMES = 8       # 16-bit and auto resolution runs
+GROUP_FRAMES = 4      # K2's path: this many frames, one group each
+ROUND_FRAMES = 16     # frames per round (the driver's --batch default)
+ROUNDS = 4            # chained rounds over one staged capture
 DEVICE = "cuda:0"
 NORMAL = (4, 2)       # (hyst_limit, shift_limit), __main__.py:238-240
 INSANE = (10, 4)
-KERNEL = dict(name="stc007_binarize_frames", route="cuda",
-              source="sdvpcmdecoder_tpu_torch/csrc/stc007_binarize.cu",
+SOURCE = "sdvpcmdecoder_tpu_torch/csrc/stc007_binarize.cu"
+KERNEL = dict(name="stc007_binarize_frames", route="cuda", source=SOURCE,
               replaces="sdvpcmdecoder_tpu/ops/pallas_binarize.py:182")
+KERNEL2 = dict(name="stc007_binarize_group", route="cuda", source=SOURCE,
+               replaces="sdvpcmdecoder_tpu/ops/pallas_binarize.py:262")
 
 
 def check(cond, msg):
@@ -89,19 +98,83 @@ def compare_k1(tag, px, cd, levels, limits):
     got = fb.stc007_fused_decode_frames(px, cd, *levels, *limits)
     expect = bz.stc007_frame_decode(px, cd, *levels, *limits)
     torch.cuda.synchronize()
-    err = 0
-    for name in got._fields:
-        g, e = getattr(got, name), getattr(expect, name)
-        check(g.dtype == e.dtype and g.shape == e.shape,
-              f"K1 {tag}: {name} {g.dtype}{tuple(g.shape)} vs plain "
-              f"{e.dtype}{tuple(e.shape)}")
-        err = max(err, int((g.long() - e.long()).abs().max()))
+    err = max_batch_err(f"K1 {tag}", got, expect)
     F, L = got.valid.shape
     print(f"[k1] {tag}: F={F} L={L} hyst/shift limits={limits} "
           f"valid={int(got.valid.sum())}/{F * L} max_abs_err={err} "
           f"(words, crc_read, crc_calc, valid, hyst, shift on all lines)")
     check(err == 0, f"K1 {tag} disagrees with its plain version")
     return err
+
+
+def max_batch_err(tag, got, expect):
+    """Max abs difference over every LineBatch field (dtypes and shapes
+    must agree)."""
+    err = 0
+    for name in got._fields:
+        g, e = getattr(got, name), getattr(expect, name)
+        check(g.dtype == e.dtype and g.shape == e.shape,
+              f"{tag}: {name} {g.dtype}{tuple(g.shape)} vs plain "
+              f"{e.dtype}{tuple(e.shape)}")
+        err = max(err, int((g.long() - e.long()).abs().max()))
+    return err
+
+
+def compare_k2(tag, px, cd, levels, limits):
+    """K2 (one group of lines, per-line levels [L]) against its plain
+    version, stc007_frame_decode over one frame, on every line."""
+    from sdvpcmdecoder_tpu_torch.ops import binarize as bz
+    from sdvpcmdecoder_tpu_torch.ops import fused_binarize as fb
+    coords = (int(cd[0]), int(cd[1]))
+    got = fb.stc007_fused_decode(px, coords, *levels, *limits)
+    plain = bz.stc007_frame_decode(px[None], cd[None],
+                                   *(t[None] for t in levels), *limits)
+    torch.cuda.synchronize()
+    err = max_batch_err(f"K2 {tag}", got,
+                        bz.LineBatch(*(t[0] for t in plain)))
+    print(f"[k2] {tag}: L={px.shape[0]} hyst/shift limits={limits} "
+          f"valid={int(got.valid.sum())}/{px.shape[0]} max_abs_err={err} "
+          f"(every LineBatch field on all lines)")
+    check(err == 0, f"K2 {tag} disagrees with its plain version")
+    return err
+
+
+def round_params(cd, pred_mode, device):
+    """The round's int32 parameter vector (ds.round_param_layout): coords,
+    ref 110 / black 20 / white 200 per frame, every frame usable, no
+    uploaded carry, the predicted conv mode and unchecked limit 3."""
+    from sdvpcmdecoder_tpu_torch.ops import device_stitch as ds
+    F = cd.shape[0]
+    o, n = ds.round_param_layout(F)
+    p = torch.zeros(n, dtype=torch.int32, device=device)
+    p[o["coords"]:o["coords"] + 2 * F] = cd.reshape(-1)
+    for key, v in (("refs", 110), ("blacks", 20), ("whites", 200),
+                   ("usable", 1)):
+        p[o[key]:o[key] + F] = v
+    p[o["pred_mode"]] = pred_mode
+    p[o["unch_lim"]] = 3
+    return p
+
+
+def run_rounds(px, cd, rows0, rows, tables, use_kernel):
+    """ROUNDS rounds of ROUND_FRAMES frames over the staged capture: round
+    0 unchained from a zero state, the others chained on the state the
+    round before handed on (the driver's _dispatch). Returns per round
+    (out, words_flat, tails, carry_next) as tensors on the card."""
+    from sdvpcmdecoder_tpu_torch.ops import deinterleave as di
+    from sdvpcmdecoder_tpu_torch.pipeline import device_driver as dd
+    F = ROUND_FRAMES
+    state = dd.RoundState.zeros(PAL_LINES, px.device)
+    results = []
+    for r in range(ROUNDS):
+        sl = slice(r * F, (r + 1) * F)
+        out, wflat, state = dd.run_round(
+            px[sl], round_params(cd[sl], di.RES_MODE_14BIT, px.device),
+            state, rows if r else rows0, en_p=True, en_q=True, m2=False,
+            hyst_limit=NORMAL[0], shift_limit=NORMAL[1],
+            use_kernel=use_kernel, chained=r > 0, tables=tables)
+        results.append((out, wflat, *state))
+    return results
 
 
 def median_ms_abab(fn_a, fn_b, rounds=5):
@@ -146,8 +219,11 @@ def main():
     from sdvpcmdecoder_tpu_torch.ops import _kernels
     from sdvpcmdecoder_tpu_torch.ops import binarize as bz
     from sdvpcmdecoder_tpu_torch.ops import deinterleave as di
+    from sdvpcmdecoder_tpu_torch.ops import device_stitch as ds
     from sdvpcmdecoder_tpu_torch.ops import fused_binarize as fb
     from sdvpcmdecoder_tpu_torch.pipeline import audio, decoder, wav
+    from sdvpcmdecoder_tpu_torch.pipeline import device_driver as dd
+    from sdvpcmdecoder_tpu_torch.synth import encoder as enc
 
     dev = torch.device(DEVICE)
     torch.cuda.set_device(dev)
@@ -274,9 +350,142 @@ def main():
           f"{fps} frames/s (host clock to synchronize, median of 5 after "
           f"one warm-up) on {card}")
 
-    print(json.dumps({"kernels": [dict(
-        KERNEL, launches=launches, max_abs_err=max(errs), ms=k_ms,
-        plain_ms=p_ms)]}))
+    # -- phase 5: K2 against its plain version on the card -----------------
+    gen = torch.Generator().manual_seed(4)
+    p1, c1, _, _ = encode_frames(1, 30.0, seed=5, device=dev)
+    group, gcd = p1[0], c1[0]
+    glev = (torch.randint(100, 121, (PAL_LINES,), generator=gen,
+                          dtype=torch.int32).to(dev),
+            torch.full((PAL_LINES,), 20, dtype=torch.int32, device=dev),
+            torch.full((PAL_LINES,), 200, dtype=torch.int32, device=dev))
+    errs2 = [compare_k2("NORMAL 588 lines sigma=30 per-line levels", group,
+                        gcd, glev, NORMAL),
+             compare_k2("INSANE 588 lines sigma=30 per-line levels", group,
+                        gcd, glev, INSANE),
+             compare_k2(f"ragged {ragged} lines", group[:ragged].contiguous(),
+                        gcd, tuple(t[:ragged].contiguous() for t in glev),
+                        NORMAL)]
+
+    # -- phase 6: K2's path -- single-frame groups of the clean capture -----
+    ng = GROUP_FRAMES
+    want_words, want_crc = enc.blocks_to_lines(
+        enc.samples_to_blocks(left, right), ng * PAL_LINES)
+    lv1 = [t.expand(PAL_LINES).contiguous() for t in
+           frame_levels(1, dev)]
+    fb.stc007_fused_decode.launches = 0
+    groups = [fb.stc007_fused_decode(px[f], (int(cd[f, 0]), int(cd[f, 1])),
+                                     *lv1, *NORMAL) for f in range(ng)]
+    torch.cuda.synchronize()
+    launches2 = fb.stc007_fused_decode.launches
+    check(launches2 == ng, f"K2 path launched {launches2} times, not {ng}")
+    for f, g in enumerate(groups):
+        lines = slice(f * PAL_LINES, (f + 1) * PAL_LINES)
+        check(bool(g.valid.all())
+              and np.array_equal(g.words.cpu().numpy(), want_words[lines])
+              and np.array_equal(g.crc_read.cpu().numpy(), want_crc[lines]),
+              f"K2 group {f}: lines invalid or words differ from the "
+              f"encoder's line words")
+    print(f"[k2-path] stc007_fused_decode on {ng} single-frame groups of "
+          f"588x{WIDTH}: K2 launches={launches2}; every line valid, words "
+          f"and read CRC equal the encoder's")
+
+    # -- phase 7: the chip-resident round at full width ---------------------
+    F, nr = ROUND_FRAMES, ROUNDS
+    n_round_frames = F * nr
+    lpf = PAL_LINES // 2
+    tables = ds.RoundTables().to(dev)
+    rows0 = dd._RoundRows(F, lpf, 0, 0, 0, lpf, True, device=dev)
+    rows = dd._RoundRows(F, lpf, stc007.MIN_DEINT_DATA, 0, 0, lpf, True,
+                         device=dev)
+    check(rows.can_chain, "round geometry cannot chain")
+    clean = encode_frames(n_round_frames, 10.0, seed=6, device=dev)
+    noisy = encode_frames(n_round_frames, 30.0, seed=7, device=dev)
+    knock = np.random.default_rng(8).choice(n_round_frames * PAL_LINES, 300,
+                                            replace=False)
+    noisy[0].view(-1, WIDTH)[torch.from_numpy(knock).to(dev)] = 0
+    staged = [("clean sigma=10", clean), ("sigma=30, 300 lines zeroed", noisy)]
+    fb.stc007_fused_decode_frames.launches = 0
+    kern =[run_rounds(cap[0], cap[1], rows0, rows, tables, True)
+            for _, cap in staged]
+    torch.cuda.synchronize()
+    launches_round = fb.stc007_fused_decode_frames.launches
+    check(launches_round == len(staged) * nr,
+          f"K1 launched {launches_round} times in {len(staged) * nr} rounds")
+    names = ("out", "wflat_rw", "words_tail", "ok8_tail", "carry_next_w",
+             "carry_next_ok")
+    for (name, cap), k_res in zip(staged, kern):
+        p_res = run_rounds(cap[0], cap[1], rows0, rows, tables, False)
+        for r in range(nr):
+            for what, g, e in zip(names, k_res[r], p_res[r]):
+                check(g.dtype == e.dtype and torch.equal(g, e),
+                      f"round {r} ({name}): {what} with the kernel differs "
+                      f"from the plain round")
+        print(f"[round] {name}: {nr} rounds x {F} frames, all six outputs "
+              f"with K1 equal the plain round byte for byte")
+    # The clean capture decodes exactly. Conv block b of pair i in chained
+    # round r (n0 = 112) reads the buffer rows from i*Ls - 112 + b on (the
+    # carry rows for i = 0 hold the last 112 lines of the frame before the
+    # prev slot, as carry_next_rows gathers them), and buffer row R of
+    # round r is stream line (r*F - 1)*Ls + R: so it is the encoder's
+    # block k = (r*F + i - 1)*Ls - 112 + b, whose six samples are
+    # left/right[3k], [3k+1], [3k+2].
+    Ls = PAL_LINES
+    _, _, c_left, c_right = clean
+    for r, res in enumerate(kern[0]):
+        (crc_read, valid, dup, cb, crcm, packed_conv, samples_conv,
+         _, _) = ds.unpack_round(res[0].cpu().numpy(), F, Ls,
+                                 (rows if r else rows0).Bc)
+        check(valid.all() and not dup.any() and crcm.all(),
+              f"clean round {r}: valid {int(valid.sum())}, dup "
+              f"{int(dup.sum())}, crcm {int(crcm.sum())} of {F * Ls}")
+        if r == 0:
+            continue
+        for i, (ofs, nb) in enumerate(rows.meta_conv):
+            k = (r * F + i - 1) * Ls - stc007.MIN_DEINT_DATA + np.arange(nb)
+            want = np.stack([ch[3 * k + j] for j in range(3)
+                             for ch in (c_left, c_right)], axis=1)
+            want = stc007.expand_sample(torch.from_numpy(want)).numpy()
+            check(np.array_equal(samples_conv[ofs:ofs + nb], want)
+                  and ((packed_conv[ofs:ofs + nb] & 0xFF) == 0xFF).all(),
+                  f"clean round {r} pair {i}: conv samples differ from the "
+                  f"encoder's input")
+    print(f"[round] clean: every line valid, no dup, every crcm set; the "
+          f"conv samples of rounds 1-{nr - 1} ({(nr - 1) * rows.Bc} blocks) "
+          f"equal the encoder's input; K1 launches={launches_round} in "
+          f"{len(staged) * nr} rounds")
+
+    # -- phase 8: timing of the round and of K2 -----------------------------
+    cpx, ccd = clean[0], clean[1]
+    state1 = dd.RoundState(*kern[0][0][2:])
+    par1 = round_params(ccd[F:2 * F], di.RES_MODE_14BIT, dev)
+
+    def one_round(use_kernel):
+        return lambda: dd.run_round(
+            cpx[F:2 * F], par1, state1, rows, en_p=True, en_q=True,
+            m2=False, hyst_limit=NORMAL[0], shift_limit=NORMAL[1],
+            use_kernel=use_kernel, chained=True, tables=tables)
+
+    rk_ms, rp_ms = median_ms_abab(one_round(True), one_round(False))
+    print(f"[time] steady_round_packed chained round {F}x{PAL_LINES}x"
+          f"{WIDTH} NORMAL: kernel path {rk_ms} ms = {F / rk_ms * 1e3} "
+          f"frames/s; plain path {rp_ms} ms = {F / rp_ms * 1e3} frames/s "
+          f"(CUDA events, median of 5, alternating) on {card}")
+    k2_ms, k2p_ms = median_ms_abab(
+        lambda: fb.stc007_fused_decode(group, (int(gcd[0]), int(gcd[1])),
+                                       *glev, *NORMAL),
+        lambda: bz.stc007_frame_decode(group[None], gcd[None],
+                                       *(t[None] for t in glev), *NORMAL))
+    print(f"[time] K2 stc007_fused_decode {PAL_LINES}x{WIDTH} NORMAL: "
+          f"{k2_ms} ms; plain stc007_frame_decode: {k2p_ms} ms (CUDA "
+          f"events, median of 5, alternating) on {card}")
+
+    print(json.dumps({"kernels": [
+        dict(KERNEL, launches=launches_round, max_abs_err=max(errs),
+             ms=k_ms, plain_ms=p_ms,
+             launches_by_path={"decode_frames": launches,
+                               "steady_round_packed": launches_round}),
+        dict(KERNEL2, launches=launches2, max_abs_err=max(errs2),
+             ms=k2_ms, plain_ms=k2p_ms)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

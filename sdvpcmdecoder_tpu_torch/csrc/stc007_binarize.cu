@@ -1,9 +1,11 @@
 // STC-007 trial-grid binarize for NVIDIA Hopper (sm_90a).
 //
 // Replaces sdvpcmdecoder_tpu/ops/pallas_binarize.py::stc007_fused_decode_frames
-// (the Pallas TPU kernel K1). Plain torch version:
-// sdvpcmdecoder_tpu_torch/ops/binarize.py::stc007_frame_decode; wrapper:
-// sdvpcmdecoder_tpu_torch/ops/fused_binarize.py::stc007_fused_decode_frames.
+// (the Pallas TPU kernel K1) and, through the entry point
+// stc007_binarize_group, ::stc007_fused_decode (K2). Plain torch version:
+// sdvpcmdecoder_tpu_torch/ops/binarize.py::stc007_frame_decode; wrappers:
+// sdvpcmdecoder_tpu_torch/ops/fused_binarize.py::stc007_fused_decode_frames
+// and ::stc007_fused_decode.
 //
 // What it computes, per video line: for hysteresis depth h in [0, n_h) and
 // pixel-shift stage s in [0, n_s), in that (lexicographic) order, read the
@@ -216,6 +218,26 @@ int stc007_binarize_frames(const uint8_t* pixels, const int32_t* pos,
       pixels, pos, ref, black, white, synd_table, (uint32_t)synd_const, L, W,
       n_h, n_s, tile, row_words, words, crc_read, valid, hyst, shift);
   return (int)cudaGetLastError();
+}
+
+// One group of L lines sharing one set of bit coordinates, with per-line
+// levels: replaces sdvpcmdecoder_tpu/ops/pallas_binarize.py::
+// stc007_fused_decode (the Pallas TPU kernel K2; wrapper
+// sdvpcmdecoder_tpu_torch/ops/fused_binarize.py::stc007_fused_decode).
+// K2's body is K1's per-line math over one frame, so this launches the same
+// kernel with F = 1: pos is [1, n_s, 128], the levels [1, L]. The ragged
+// last tile is masked in the kernel, where the TPU kernel padded the group
+// on the host.
+int stc007_binarize_group(const uint8_t* pixels, const int32_t* pos,
+                          const int32_t* ref, const int32_t* black,
+                          const int32_t* white, const int32_t* synd_table,
+                          int synd_const, int L, int W, int n_h, int n_s,
+                          int tile, int32_t* words, int32_t* crc_read,
+                          uint8_t* valid, int32_t* hyst, int32_t* shift,
+                          void* stream) {
+  return stc007_binarize_frames(pixels, pos, ref, black, white, synd_table,
+                                synd_const, 1, L, W, n_h, n_s, tile, words,
+                                crc_read, valid, hyst, shift, stream);
 }
 
 const char* stc007_error_string(int code) {

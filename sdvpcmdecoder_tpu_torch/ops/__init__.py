@@ -1,1 +1,2 @@
-"""Device ops: binarizer trial grid and its CUDA kernel, deinterleave + ECC."""
+"""Device ops: binarizer trial grid and its CUDA kernel, deinterleave + ECC,
+the seam sweep and the steady round."""

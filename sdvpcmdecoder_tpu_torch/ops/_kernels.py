@@ -32,6 +32,8 @@ SIGNATURES = {
         "stc007_binarize_frames": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I,
                                         _I, _I, _I, _I, _P, _P, _P, _P, _P,
                                         _P]),
+        "stc007_binarize_group": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                       _I, _I, _I, _P, _P, _P, _P, _P, _P]),
         "stc007_error_string": (ctypes.c_char_p, [_I]),
     },
 }

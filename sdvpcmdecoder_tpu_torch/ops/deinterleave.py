@@ -120,23 +120,34 @@ def _to16(w, c, s_words, s_crc):
     (stc007deinterleaver.cpp:1195-1274); Q slot zeroed and valid."""
     shifts = torch.as_tensor(stc007.F1_S_OFFSETS, dtype=torch.int32,
                              device=w.device)
-    w16 = ((w[:, :7] << stc007.F1_WORD_OFS)
+    w16 = ((w[..., :7] << stc007.F1_WORD_OFS)
            + ((s_words >> shifts) & stc007.F1_S_MASK))
-    c16 = c[:, :7] & s_crc
-    return (torch.cat([w16, torch.zeros_like(w[:, :1])], dim=-1),
-            torch.cat([c16, torch.ones_like(c[:, :1])], dim=-1))
+    c16 = c[..., :7] & s_crc
+    return (torch.cat([w16, torch.zeros_like(w[..., :1])], dim=-1),
+            torch.cat([c16, torch.ones_like(c[..., :1])], dim=-1))
+
+
+def clamp_rows(rows: torch.Tensor, n: int) -> torch.Tensor:
+    """Row indices into an n-row buffer as XLA's gather reads them in the
+    JAX package: a negative index counts from the end, then every index is
+    clamped to [0, n-1]. torch raises on an out-of-range index (a device
+    assert on CUDA), so every gather the JAX package leaves to XLA's
+    clamping goes through here."""
+    return torch.where(rows < 0, rows + n, rows).clamp(0, n - 1)
 
 
 def assemble_blocks(line_words, line_crc_ok, line_shifts, resolution):
     """Gather block words from the interleaved line buffer.
 
     line_words [L, 8] int32, line_crc_ok [L, 8] bool, line_shifts [B]
-    block start lines, resolution RES_14BIT or RES_16BIT.
+    block start lines, resolution RES_14BIT or RES_16BIT. Rows past either
+    end of the buffer read clamped rows, as in the JAX package.
     Returns (words [B,8] int32, crc_ok [B,8] bool).
     """
     device = line_words.device
     shifts = torch.as_tensor(line_shifts, device=device).long()
-    rows = shifts[:, None] + _taps(device)[None, :]            # [B, 8]
+    rows = clamp_rows(shifts[:, None] + _taps(device)[None, :],
+                      line_words.shape[0])                       # [B, 8]
     widx = torch.arange(N_WORDS, device=device)[None, :]
     w = line_words[rows, widx]
     c = line_crc_ok[rows, widx]

@@ -1,1 +1,2 @@
-"""Host orchestration: the STC-007 decode chain, audio chain, WAV writer."""
+"""Host orchestration: the STC-007 decode chain, the round geometry and
+state, audio chain, WAV writer."""

@@ -182,6 +182,33 @@ def test_fused_wrapper_matches_pallas_interpret():
     assert_batch(got, expect)
 
 
+def test_group_wrapper_matches_pallas_interpret():
+    """K2's wrapper (one group of lines sharing coordinates, per-line
+    levels) on a CPU tensor runs its plain version; it equals the Pallas
+    kernel K2 (interpreter on CPU) on every field of all 300 lines at
+    NORMAL, the ragged last tile and clipping levels included."""
+    L, W = 300, 1152
+    rng = np.random.default_rng(13)
+    pixels, coords, *_ = jenc.encode_stream(
+        rng.integers(0, 1 << 14, 3 * L), rng.integers(0, 1 << 14, 3 * L),
+        width=W, ppb=8.0, n_lines=L, noise_sigma=30.0, rng=rng)
+    ref, black, white = (a[0] for a in levels(1, L, True, seed=14))
+    cd = (int(coords[0, 0]), int(coords[0, 1]))
+    expect = jpb.stc007_fused_decode(
+        jnp.asarray(pixels), cd, jnp.asarray(ref), jnp.asarray(black),
+        jnp.asarray(white), 4, 2, tile_lines=32)
+    before = fb.stc007_fused_decode.launches
+    got = fb.stc007_fused_decode(
+        torch.from_numpy(pixels), (torch.tensor(cd[0]), torch.tensor(cd[1])),
+        torch.from_numpy(ref), torch.from_numpy(black),
+        torch.from_numpy(white), 4, 2, tile_lines=32)
+    assert fb.stc007_fused_decode.launches == before  # no kernel
+    assert_batch(got, expect)
+    valid = got.valid.numpy()
+    assert 0 < valid.sum() < L
+    assert got.hyst.max() > 0 or got.shift.max() > 0
+
+
 def test_fused_wrapper_refuses_other_devices():
     """No quiet fallback: a tensor that is neither on the CPU nor on a
     CUDA device is refused, not decoded by the plain version."""
@@ -189,6 +216,9 @@ def test_fused_wrapper_refuses_other_devices():
     lv = torch.zeros((1,), dtype=torch.int32)
     with pytest.raises(ValueError, match="unsupported device"):
         fb.stc007_fused_decode_frames(px, torch.zeros((1, 2)), lv, lv, lv)
+    lv4 = torch.zeros((4,), dtype=torch.int32)
+    with pytest.raises(ValueError, match="unsupported device"):
+        fb.stc007_fused_decode(px[0], (40, 1100), lv4, lv4, lv4)
 
 
 def test_tables_equal_jax():

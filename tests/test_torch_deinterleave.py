@@ -126,6 +126,20 @@ def test_assemble_blocks_match_jax(resolution):
         assert_same(g, e)
 
 
+@pytest.mark.parametrize("resolution", [di.RES_14BIT, di.RES_16BIT])
+def test_assemble_blocks_past_the_buffer_match_jax(resolution):
+    """Shifts whose taps run past either end of the buffer read the rows
+    XLA's gather clamps to (a negative index counts from the end first);
+    torch would raise, or assert on the device, without the clamp."""
+    lw, ck = line_buffer(200, seed=10)
+    shifts = np.array([0, 60, 87, 88, 120, 199, 200, 260, 5000, -1, -17,
+                       -300], dtype=np.int32)
+    got, expect = both(di.assemble_blocks, jdi.assemble_blocks, lw, ck,
+                       shifts, resolution)
+    for g, e in zip(got, expect):
+        assert_same(g, e)
+
+
 @pytest.mark.parametrize("res_mode", [di.RES_MODE_14BIT,
                                       di.RES_MODE_14BIT_AUTO,
                                       di.RES_MODE_16BIT_AUTO,

@@ -68,6 +68,69 @@ def test_binarize_kernel_matches_plain(cuda, n_frames, lines_pf, limits,
     assert_batches_equal(got, expect)
 
 
+@pytest.mark.parametrize("lines,limits", [
+    (588, (4, 2)),      # one PAL frame, NORMAL
+    (588, (10, 4)),     # INSANE
+    (300, (4, 2)),      # ragged last tile
+])
+def test_group_kernel_matches_plain(cuda, lines, limits):
+    """K2 (stc007_fused_decode: one group of lines, per-line levels)
+    against its plain version on every field of every line."""
+    px, cd = noisy_frames(1, lines, 30.0, seed=lines, device=cuda)
+    gen = torch.Generator().manual_seed(3)
+    ref = torch.randint(100, 121, (lines,), generator=gen,
+                        dtype=torch.int32).to(cuda)
+    black = torch.full((lines,), 20, dtype=torch.int32, device=cuda)
+    white = torch.full((lines,), 200, dtype=torch.int32, device=cuda)
+    coords = (int(cd[0, 0]), int(cd[0, 1]))
+    before = fb.stc007_fused_decode.launches
+    got = fb.stc007_fused_decode(px[0], coords, ref, black, white, *limits)
+    torch.cuda.synchronize()
+    assert fb.stc007_fused_decode.launches == before + 1
+    expect = bz.stc007_frame_decode(px, cd, ref[None], black[None],
+                                    white[None], *limits)
+    assert_batches_equal(got, bz.LineBatch(*(t[0] for t in expect)))
+
+
+def test_steady_round_kernel_matches_plain(cuda):
+    """One unchained and one chained PAL round of 4 frames: the six
+    outputs with the K1 kernel equal those of the plain binarize."""
+    from sdvpcmdecoder_tpu_torch.ops import device_stitch as ds
+    from sdvpcmdecoder_tpu_torch.pipeline import device_driver as dd
+    F, lpf = 4, 294
+    px, cd = noisy_frames(2 * F, 2 * lpf, 30.0, seed=5, device=cuda)
+    tables = ds.RoundTables().to(cuda)
+    o, n = ds.round_param_layout(F)
+    states = {True: dd.RoundState.zeros(2 * lpf, cuda)}
+    states[False] = states[True]
+    for r in range(2):
+        rows = dd._RoundRows(F, lpf, 112 if r else 0, 0, 0, lpf, True,
+                             device=cuda)
+        params = torch.zeros(n, dtype=torch.int32)
+        params[o["coords"]:o["coords"] + 2 * F] = \
+            cd[r * F:(r + 1) * F].reshape(-1).cpu()
+        params[o["refs"]:o["refs"] + F] = 110
+        params[o["blacks"]:o["blacks"] + F] = 20
+        params[o["whites"]:o["whites"] + F] = 200
+        params[o["usable"]:o["usable"] + F] = 1
+        params[o["pred_mode"]] = 1
+        params[o["unch_lim"]] = 3
+        outs = {}
+        for use_kernel in (True, False):
+            before = fb.stc007_fused_decode_frames.launches
+            out, wflat, states[use_kernel] = dd.run_round(
+                px[r * F:(r + 1) * F].contiguous(), params,
+                states[use_kernel], rows, en_p=True, en_q=True, m2=False,
+                hyst_limit=4, shift_limit=2, use_kernel=use_kernel,
+                chained=r > 0, tables=tables)
+            torch.cuda.synchronize()
+            assert fb.stc007_fused_decode_frames.launches \
+                == before + use_kernel
+            outs[use_kernel] = (out, wflat, *states[use_kernel])
+        for g, e in zip(outs[True], outs[False]):
+            assert g.dtype == e.dtype and torch.equal(g, e)
+
+
 def test_decode_frames_kernel_matches_plain(cuda):
     px, cd = noisy_frames(4, 588, 30.0, seed=2, device=cuda)
     lv = [torch.full((4,), v, dtype=torch.int32, device=cuda)

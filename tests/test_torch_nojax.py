@@ -44,6 +44,27 @@ with tempfile.TemporaryDirectory() as tmp:
     wav.write_wav(path, out, sample_rate=44056)
     back, _ = wav.read_wav(path)
 assert np.array_equal(back, res.samples.numpy())
+
+# The round (device_stitch + the round geometry) and K2's wrapper.
+from sdvpcmdecoder_tpu_torch.ops import device_stitch as ds
+from sdvpcmdecoder_tpu_torch.ops import fused_binarize as fb
+from sdvpcmdecoder_tpu_torch.pipeline import device_driver as dd
+px3 = torch.from_numpy(pixels.reshape(F, LF, W))
+rows = dd._RoundRows(F, LF // 2, 0, 0, 0, LF // 2, True, device="cpu")
+o, n_par = ds.round_param_layout(F)
+params = np.zeros(n_par, np.int32)
+params[o["coords"]:o["coords"] + 2 * F] = coords[::LF].ravel()
+for key, v in (("refs", 110), ("blacks", 20), ("whites", 200), ("usable", 1)):
+    params[o[key]:o[key] + F] = v
+out, wflat, state = dd.run_round(
+    px3, params, dd.RoundState.zeros(LF, "cpu"), rows, en_p=True, en_q=True,
+    m2=False, hyst_limit=4, shift_limit=2, use_kernel=True, chained=False,
+    tables=ds.RoundTables())
+assert ds.unpack_round(out.numpy(), F, LF, rows.Bc)[1].all()
+grp = fb.stc007_fused_decode(px3[0], tuple(coords[0]),
+                             *(torch.full((LF,), v, dtype=torch.int32)
+                               for v in (110, 20, 200)))
+assert bool(grp.valid.all()) and torch.equal(grp.words, wflat[:LF])
 assert not any(m == "jax" or m.startswith(("jax.", "sdvpcmdecoder_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("SLICE_OK")
