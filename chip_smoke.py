@@ -3,13 +3,18 @@
 
 Builds the CUDA kernels of the STC-007 decode chain from csrc/ (K1, the
 per-frame binarize, and K2, the per-group binarize: two entry points of one
-source), checks each against its plain torch version on the card, and
-drives three paths at full PAL size (588 lines x 1152 px, NORMAL limits):
-decode_frames on 128 frames through the audio masker and the WAV writer;
-K2 on single-frame groups; and the chip-resident round
-(steady_round_packed), 4 chained rounds of 16 frames on a staged 64-frame
-capture, once clean and once noisy with knocked-out lines. Times the
-kernels, their plain versions, the chain and the round. Needs one NVIDIA
+source) and, with g++ at the same time, the native stitcher core from
+sdvpcmdecoder_tpu/native/stitchcore.cpp; checks each kernel against its
+plain torch version on the card, and drives four paths at full PAL size
+(588 lines x 1152 px): decode_frames on 128 frames through the audio
+masker and the WAV writer; K2 on single-frame groups; the chip-resident
+round (steady_round_packed), 4 chained rounds of 16 frames on a staged
+64-frame capture, once clean and once noisy with knocked-out lines; and
+the chip-resident driver (DeviceBatchDecoder), y4m captures in and WAVs
+out: two golden captures whose WAVs must hash as the JAX package's do,
+2 x 128 frames timed with K1 and with the plain binarize, and a noisy
+capture that takes the marker-fallback re-decode. Times the kernels, their
+plain versions, the chain, the round and the driver. Needs one NVIDIA
 GPU; from the repository root:
 
     python3 chip_smoke.py
@@ -42,6 +47,10 @@ MODE_FRAMES = 8       # 16-bit and auto resolution runs
 GROUP_FRAMES = 4      # K2's path: this many frames, one group each
 ROUND_FRAMES = 16     # frames per round (the driver's --batch default)
 ROUNDS = 4            # chained rounds over one staged capture
+DRIVER_FRAMES = 128   # frames per capture of the timed driver run
+DRIVER_SEEDS = (1, 11)
+DRIVER_HBM = 64       # staging chunk: every capture crosses chunks
+NOISY_FRAMES = 32     # the noisy driver capture (sigma 26)
 DEVICE = "cuda:0"
 NORMAL = (4, 2)       # (hyst_limit, shift_limit), __main__.py:238-240
 INSANE = (10, 4)
@@ -50,6 +59,47 @@ KERNEL = dict(name="stc007_binarize_frames", route="cuda", source=SOURCE,
               replaces="sdvpcmdecoder_tpu/ops/pallas_binarize.py:182")
 KERNEL2 = dict(name="stc007_binarize_group", route="cuda", source=SOURCE,
                replaces="sdvpcmdecoder_tpu/ops/pallas_binarize.py:262")
+
+
+# sha256 of the JAX package's WAV for each golden capture
+# (write_capture(path, 12, 294, seed=1) and write_capture(path, 10, 245,
+# seed=1), decoded at hyst 2, shift 1, 5 frames per round), made with
+#     batch_driver.BatchDecoder([(capture, wav)], lines_per_field=lpf,
+#         hyst_limit=2, shift_limit=1, frames_per_round=5,
+#         backend="native").run()
+# from sdvpcmdecoder_tpu.pipeline; tests/test_torch_driver.py recomputes
+# them from the JAX package.
+GOLDEN_SHA256 = {
+    "pal": "d78d00beb3096964a5e05e16c581878b09549535cb25d6f151ba40f6bafa7b9f",
+    "ntsc": "40f2e8b6582372cea5b3a40224ff326e3d4db0076971b27bab25c186269e35ed",
+}
+
+
+def write_capture(path, n_frames, lpf, seed, noise=0.0):
+    """A y4m STC-007 capture of n_frames frames, 2 * lpf lines x WIDTH px,
+    written with the port's encoder (8 px per bit, the fields of a frame
+    interleaved): the recipe of the JAX package's driver tests. Returns
+    the path."""
+    from sdvpcmdecoder_tpu_torch.pipeline import ingest
+    from sdvpcmdecoder_tpu_torch.synth import encoder as enc
+    rng = np.random.default_rng(seed)
+    n = 3 * n_frames * 2 * lpf
+    frames = enc.encode_fields(rng.integers(1, 1 << 14, n),
+                               rng.integers(1, 1 << 14, n), n_frames,
+                               lines_pf=lpf)
+    vids = np.zeros((n_frames, 2 * lpf, WIDTH), np.uint8)
+    for f, fr in enumerate(frames):
+        pixels, _ = enc.render_lines(fr["line_words"], fr["crcs"],
+                                     width=WIDTH, ppb=8.0)
+        L = pixels.shape[0]
+        if noise:
+            pixels = np.clip(pixels.astype(np.int16)
+                             + rng.normal(0, noise, pixels.shape), 0, 255) \
+                .astype(np.uint8)
+        vids[f, 0::2] = pixels[:L // 2]
+        vids[f, 1::2] = pixels[L // 2:]
+    ingest.write_y4m(path, vids)
+    return path
 
 
 def check(cond, msg):
@@ -212,6 +262,57 @@ def kernel_device_ms(fn, kernel_name, calls=5):
     return rows[0].self_device_time_total / calls / 1e3
 
 
+def tree_digest(path):
+    """sha256 over the names and bytes of the files in a directory."""
+    import hashlib
+    h = hashlib.sha256()
+    for p in sorted(Path(path).iterdir()):
+        if p.is_file():
+            h.update(p.name.encode() + p.read_bytes())
+    return h.hexdigest()
+
+
+def driver_run(jobs, tmp, tag, use_kernel, **kw):
+    """DeviceBatchDecoder over `jobs` on the card. Returns (WAV bytes per
+    job, the decoder, staging seconds, decode wall seconds), staging being
+    the constructor (the first chunks, awaited as _await_staging does) plus
+    the later chunks' stage_hbm time inside run(), and the decode wall the
+    rest of run() up to a synchronize. The decoder's stage_t keeps only
+    run()'s share of stage_hbm."""
+    import os
+
+    from sdvpcmdecoder_tpu_torch.pipeline import device_driver as dd
+    t0 = time.perf_counter()
+    dec = dd.DeviceBatchDecoder(
+        [(cap, os.path.join(tmp, f"{tag}_{k}.wav"))
+         for k, cap in enumerate(jobs)], device=DEVICE,
+        use_kernel=use_kernel, **kw)
+    t1 = time.perf_counter()
+    dec.stage_t["stage_hbm"] = 0.0   # the constructor's share is t1 - t0
+    dec.run()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    stage = t1 - t0 + dec.stage_t["stage_hbm"]
+    wall = t2 - t1 - dec.stage_t["stage_hbm"]
+    return ([open(j.out_path, "rb").read() for j in dec.jobs], dec, stage,
+            wall)
+
+
+def driver_device_busy(jobs, tmp, **kw):
+    """(device busy ms, CUDA kernel and copy events, wall ms) of one
+    kernel-path driver run under torch.profiler: the sum of the CUDA rows'
+    self device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, _, _, wall = driver_run(jobs, tmp, "prof", True, **kw)
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in rows) / 1e3,
+            sum(e.count for e in rows), wall * 1e3)
+
+
 def main():
     check(torch.cuda.is_available(), "no CUDA device "
           "(torch.cuda.is_available() is false)")
@@ -234,6 +335,12 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card)   # as nvidia-smi gives it: name, power limit
+    from concurrent.futures import ThreadPoolExecutor
+
+    from sdvpcmdecoder_tpu_torch.ops import stitch_native as sn
+    native_before = tree_digest(sn.NATIVE_SRC)
+    pool = ThreadPoolExecutor(1)   # g++ for the native core beside nvcc
+    native_build = pool.submit(sn.build, "stitchcore.cpp")
     build = _kernels.build("stc007_binarize")
     _kernels.load("stc007_binarize")
     usage = [ln.strip() for ln in build.log.splitlines()
@@ -479,11 +586,136 @@ def main():
           f"{k2_ms} ms; plain stc007_frame_decode: {k2p_ms} ms (CUDA "
           f"events, median of 5, alternating) on {card}")
 
+    # -- phase 9: the native stitcher core (built beside nvcc in phase 1) --
+    nb = native_build.result()
+    pool.shutdown()
+    print(f"[native] stitchcore.cpp: {nb.seconds} s g++ {' '.join(nb.flags)}"
+          f" -> {nb.path}; available={sn.available()}")
+    check(sn.available(), "the native core did not load")
+
+    # -- phase 10: captures (y4m, the JAX driver tests' recipe) -------------
+    import hashlib
+    import os
+    tmpdir = tempfile.TemporaryDirectory()
+    tmp = tmpdir.name
+    t0 = time.perf_counter()
+    golden = {"pal": write_capture(os.path.join(tmp, "pal.y4m"), 12, 294,
+                                   seed=1),
+              "ntsc": write_capture(os.path.join(tmp, "ntsc.y4m"), 10, 245,
+                                    seed=1)}
+    big = [write_capture(os.path.join(tmp, f"big{s}.y4m"), DRIVER_FRAMES,
+                         294, seed=s) for s in DRIVER_SEEDS]
+    noisy_cap = write_capture(os.path.join(tmp, "noisy.y4m"), NOISY_FRAMES,
+                              294, seed=2, noise=26.0)
+    print(f"[captures] golden PAL 12 and NTSC 10 frames, 2 x "
+          f"{DRIVER_FRAMES} PAL frames (seeds {DRIVER_SEEDS}), noisy "
+          f"{NOISY_FRAMES} PAL frames sigma=26: written in "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    # -- phase 11: golden WAVs, byte-identical to the JAX package's --------
+    launches_golden = 0
+    for name, cap in golden.items():
+        lpf = 294 if name == "pal" else 245
+        fb.stc007_fused_decode_frames.launches = 0
+        wavs, dec, _, _ = driver_run([cap], tmp, f"golden_{name}", True,
+                                     lines_per_field=lpf, hyst_limit=2,
+                                     shift_limit=1, frames_per_round=5)
+        n = fb.stc007_fused_decode_frames.launches
+        launches_golden += n
+        j = dec.jobs[0]
+        digest = hashlib.sha256(wavs[0]).hexdigest()
+        check(digest == GOLDEN_SHA256[name],
+              f"golden {name}: WAV sha256 {digest} is not the JAX "
+              f"package's {GOLDEN_SHA256[name]}")
+        check(n == len(j.round_chained) + j.driver.fallback_batches,
+              f"golden {name}: K1 launched {n} times")
+        print(f"[golden] {name}: WAV sha256 {digest} equals the JAX "
+              f"package's; rounds {len(j.round_chained)}, K1 launches {n}")
+
+    # -- phase 12: the driver at full width, timed -------------------------
+    dkw = dict(lines_per_field=294, hyst_limit=NORMAL[0],
+               shift_limit=NORMAL[1], frames_per_round=ROUND_FRAMES,
+               hbm_frames=DRIVER_HBM)
+    runs = {}
+    for use_kernel in (True, False):
+        fb.stc007_fused_decode_frames.launches = 0
+        res = driver_run(big, tmp, f"big{int(use_kernel)}", use_kernel,
+                         **dkw)
+        runs[use_kernel] = res + (fb.stc007_fused_decode_frames.launches,)
+    wk, deck, stage_k, wall_k, launches_driver = runs[True]
+    wp, decp, stage_p, wall_p, launches_plain = runs[False]
+    check(wk == wp, "driver: the kernel path's WAVs differ from the plain "
+          "path's")
+    n_rounds = sum(len(j.round_chained) for j in deck.jobs)
+    n_fb = sum(j.driver.fallback_batches for j in deck.jobs)
+    check(launches_driver == n_rounds + n_fb and launches_plain == 0,
+          f"driver: K1 launched {launches_driver} times for {n_rounds} "
+          f"rounds + {n_fb} fallback batches (plain path: {launches_plain})")
+    for j in deck.jobs + decp.jobs:
+        check(not j.round_chained[0] and all(j.round_chained[1:]),
+              f"driver: rounds chained {j.round_chained}")
+        check(j.stats.lines_valid == j.stats.lines_total
+              == DRIVER_FRAMES * PAL_LINES,
+              f"driver: {j.stats.lines_valid}/{j.stats.lines_total} lines "
+              f"valid")
+    audio_s = 0.0
+    for k in range(len(big)):
+        back, rate = wav.read_wav(deck.jobs[k].out_path)
+        audio_s += len(back) / rate
+    n_fr = DRIVER_FRAMES * len(big)
+    for tag, dec, stage, wall in (("kernel", deck, stage_k, wall_k),
+                                  ("plain", decp, stage_p, wall_p)):
+        st = {k: round(dec.stage_t[k], 4) for k in (
+            "dispatch", "prescan", "materialize", "finalize", "assemble",
+            "stitch", "audio", "wav", "stage_hbm")}
+        print(f"[driver] {tag} path, {len(big)} x {DRIVER_FRAMES} PAL frames "
+              f"NORMAL, {ROUND_FRAMES} frames per round, {DRIVER_HBM}-frame "
+              f"staging chunks: decode wall {wall} s (staging {stage} s "
+              f"excluded) = {n_fr / wall} frames/s = {audio_s / wall} s of "
+              f"audio per s; rounds {n_rounds}; stage_t {st} on {card}")
+    busy_ms, n_dev, prof_ms = driver_device_busy(big, tmp, **dkw)
+    print(f"[driver] kernel path under torch.profiler: device busy "
+          f"{busy_ms} ms over {n_dev} CUDA events (profiled wall {prof_ms} "
+          f"ms); device idle share of the timed run "
+          f"{1 - busy_ms / (wall_k * 1e3)} on {card}")
+    print(f"[driver] WAVs of both paths byte-equal ({audio_s} s of audio); "
+          f"every round after each capture's first chained; every line "
+          f"valid; K1 launches {launches_driver} = {n_rounds} rounds + "
+          f"{n_fb} fallback batches")
+
+    # -- phase 13: a noisy capture (fallback frames, marker re-decode) -----
+    nkw = dict(lines_per_field=294, hyst_limit=2, shift_limit=1,
+               frames_per_round=5)
+    fb.stc007_fused_decode_frames.launches = 0
+    wn, decn, _, wall_n = driver_run([noisy_cap], tmp, "noisy1", True, **nkw)
+    launches_noisy = fb.stc007_fused_decode_frames.launches
+    wnp, _, _, _ = driver_run([noisy_cap], tmp, "noisy0", False, **nkw)
+    jn = decn.jobs[0]
+    check(wn == wnp, "noisy: the kernel path's WAV differs from the plain "
+          "path's")
+    check(jn.driver.fallback_batches >= 1 and launches_noisy
+          == len(jn.round_chained) + jn.driver.fallback_batches,
+          f"noisy: {launches_noisy} K1 launches, {len(jn.round_chained)} "
+          f"rounds, {jn.driver.fallback_batches} fallback batches")
+    print(f"[noisy] {NOISY_FRAMES} PAL frames sigma=26: kernel and plain WAVs "
+          f"byte-equal; lines valid {jn.stats.lines_valid}/"
+          f"{jn.stats.lines_total}; K1 launches {launches_noisy} = "
+          f"{len(jn.round_chained)} rounds + {jn.driver.fallback_batches} "
+          f"fallback re-decode batches; wall {wall_n} s")
+    tmpdir.cleanup()
+    check(tree_digest(sn.NATIVE_SRC) == native_before,
+          "sdvpcmdecoder_tpu/native/ changed during the run")
+    print("[native] sdvpcmdecoder_tpu/native/ unchanged by the run")
+
+    launches_k1 = {"decode_frames": launches,
+                   "steady_round_packed": launches_round,
+                   "driver_golden": launches_golden,
+                   "driver_full_width": launches_driver,
+                   "driver_noisy": launches_noisy}
     print(json.dumps({"kernels": [
-        dict(KERNEL, launches=launches_round, max_abs_err=max(errs),
-             ms=k_ms, plain_ms=p_ms,
-             launches_by_path={"decode_frames": launches,
-                               "steady_round_packed": launches_round}),
+        dict(KERNEL, launches=sum(launches_k1.values()),
+             max_abs_err=max(errs), ms=k_ms, plain_ms=p_ms,
+             launches_by_path=launches_k1),
         dict(KERNEL2, launches=launches2, max_abs_err=max(errs2),
              ms=k2_ms, plain_ms=k2p_ms)]}))
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,13 @@ imports torch and numpy, never JAX.
 Layer map:
   formats/   - bit layouts, CRC, GF(2) algebra, sample expansion
   ops/       - binarizer trial grid (plain torch + hand-written CUDA
-               kernel), deinterleave + P/Q erasure correction
-  pipeline/  - the STC-007 decode chain, audio masking, WAV writer
+               kernel), deinterleave + P/Q erasure correction, the seam
+               sweep and the steady round, the native stitcher core's
+               loader (g++ on first use), host AGC and marker search
+  pipeline/  - the STC-007 decode chain, the host stitcher, V2D, the
+               chip-resident driver (DeviceBatchDecoder), ingest, audio
+               masking, WAV writer
+  utils/     - stats, checkpoints, the numpy-in/numpy-out adapter
   synth/     - synthetic STC-007 encoder (numpy) for conformance checks
   csrc/      - CUDA C++ sources, built with nvcc on first use
 

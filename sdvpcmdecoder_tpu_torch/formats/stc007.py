@@ -150,3 +150,23 @@ def is_control_block(words: torch.Tensor) -> torch.Tensor:
             & (words[..., WORD_R1] == CB_CUE2)
             & (words[..., WORD_L2] == 0)
             & ((words[..., WORD_Q] & CTRL_ZERO_MASK) == 0))
+
+
+def control_block_fields(words):
+    """Decode Control Block payload -> dict (host-side, numpy scalars)."""
+    addr1 = int(words[..., WORD_R2])
+    addr2 = int(words[..., WORD_P])
+    ctrl = int(words[..., WORD_Q])
+    return {
+        "ctrl_id": int(words[..., WORD_L2]) & DATA_WORD_MASK,
+        "index": (addr1 >> 8) & 0x3F,
+        "hour": (addr1 >> 4) & 0x0F,
+        "minute": ((addr2 >> 12) & 0x03) + ((addr1 & 0x0F) << 2),
+        "second": (addr2 >> 6) & 0x3F,
+        "field": addr2 & 0x3F,
+        "m2": (ctrl & CTRL_FMT_ID) == CTRL_FMT_M2,
+        "copy_prohibited": (ctrl & CTRL_COPY_MASK) != 0,
+        "p_enabled": (ctrl & CTRL_EN_P_MASK) == 0,
+        "q_enabled": (ctrl & CTRL_EN_Q_MASK) == 0,
+        "emphasis": (ctrl & CTRL_EMPH_MASK) == 0,
+    }

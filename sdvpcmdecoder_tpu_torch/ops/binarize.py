@@ -279,9 +279,70 @@ def pick_center_ref_level(black, white, min_contrast=8, min_ref_lvl=1,
                           max_ref_lvl=254):
     """Mid-point reference pick (binarizer.cpp pickCenterRefLevel).
 
-    Returns (ref_level, contrast_ok).
+    Returns (ref_level, contrast_ok). Takes tensors or numpy arrays (the
+    V2D prescan's host path) and returns the same kind.
     """
     delta = white - black
     ok = delta >= min_contrast
-    ref = torch.clamp(black + delta // 2, min_ref_lvl, max_ref_lvl)
+    clip = np.clip if isinstance(delta, np.ndarray) else torch.clamp
+    ref = clip(black + delta // 2, min_ref_lvl, max_ref_lvl)
     return ref, ok
+
+
+def pick_ref_sweep(valid, crc, hyst, shift, min_valid_crcs=5):
+    """CRC-statistics selection over a ref-level sweep (host numpy).
+
+    Port of calcRefLevelBySweep :3821 selection: find the most frequent
+    CRC across levels (findMostFrequentCRC :1829), drop collisions
+    (invalidateNonFrequentCRCs :1931), require a span of at least
+    `min_valid_crcs` levels (digi_set default, binarizer.cpp:55), then
+    pick the middle of the longest contiguous run at the lowest
+    (hysteresis, shift) combo (pickLevelByCRCStats :1985).  A span that
+    exists but is too narrow still yields a pick, flagged forced-bad
+    (SPAN_TOO_NARROW -> pickLevelByCRCStatsOpt + setForcedBad :3997).
+
+    Arrays are [R, N] (levels descending, lines flattened).
+    Returns (pick_idx [N], good [N], forced_bad [N]); pick_idx is -1
+    where no level produced a valid CRC.
+    """
+    R, N = valid.shape
+    crc = np.where(valid, crc, -1)
+    # Count, for each level r, how many valid levels of the same line
+    # share its CRC — sort-grouped, O(RN log R) instead of an [R,R,N]
+    # equality tensor.
+    counts = np.zeros((R, N), dtype=np.int64)
+    if valid.any():
+        rr, nn = np.nonzero(valid)
+        ids = nn.astype(np.int64) * (1 << 17) + crc[rr, nn] + 1
+        _, inverse, grp_counts = np.unique(ids, return_inverse=True,
+                                           return_counts=True)
+        counts[rr, nn] = grp_counts[inverse]
+    best = counts.argmax(axis=0)                          # first max:
+    span = counts[best, np.arange(N)]                     # highest level
+    modal_crc = crc[best, np.arange(N)]
+    target = valid & (crc == modal_crc[None, :]) & (span[None, :] > 0)
+    h_m = np.where(target, hyst, 0x7FFF)
+    low_d = h_m.min(axis=0)
+    s_m = np.where(target & (hyst == low_d[None, :]), shift, 0x7FFF)
+    low_s = s_m.min(axis=0)
+    region = target & (hyst == low_d[None, :]) & (shift == low_s[None, :])
+    # Longest contiguous run per line; ties go to the LATER (lower-level)
+    # run (pickLevelByCRCStats :2105 uses >=) — run extraction over all
+    # lines at once via transitions, best run by an encoded score.
+    pick_idx = np.full(N, -1, dtype=np.int64)
+    padded = np.zeros((R + 2, N), np.int8)
+    padded[1:-1] = region
+    d = np.diff(padded, axis=0)
+    ln_s, r_s = np.nonzero(d.T == 1)   # run starts, line-major order
+    ln_e, r_e = np.nonzero(d.T == -1)  # run ends (exclusive), aligned
+    if len(ln_s):
+        length = r_e - r_s
+        pick = r_s + (r_e - 1 - r_s) // 2
+        score = (length * (R + 2) + r_s) * 512 + pick
+        best_score = np.full(N, -1, dtype=np.int64)
+        np.maximum.at(best_score, ln_s, score)
+        found = best_score >= 0
+        pick_idx[found] = best_score[found] % 512
+    good = span >= min_valid_crcs
+    forced_bad = (span > 0) & ~good
+    return pick_idx, good, forced_bad

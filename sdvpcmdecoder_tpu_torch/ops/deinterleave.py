@@ -448,6 +448,41 @@ def correct_blocks(words, crc_ok, resolution, en_p=True, en_q=True,
                       stage, res_arr)
 
 
+def correct_blocks_cwd(words, crc_ok, cwd_fixed, resolution, en_p=True,
+                       en_q=True, force_ecc=True, *, q_banks=None):
+    """correct_blocks with Cross-Word-Decoding assist.
+
+    The reference enters STG_CWD_CORR only from failure paths (>2 total
+    errors, or 2 audio errors in 16-bit mode; stc007deinterleaver.cpp:
+    586-635) and then re-runs selection with pre-fixed words counted valid.
+    Vectorized: run the tree on raw CRC flags and on (crc | cwd_fixed);
+    select the CWD result exactly for blocks that would have entered
+    STG_CWD_CORR with at least one applicable pre-fixed word.
+
+    Returns (BlockBatch, cwd_applied [B] bool).
+    """
+    r_raw = correct_blocks(words, crc_ok, resolution, en_p=en_p, en_q=en_q,
+                           force_ecc=force_ecc, q_banks=q_banks)
+    eff_ok = crc_ok | cwd_fixed
+    r_eff = correct_blocks(words, eff_ok, resolution, en_p=en_p, en_q=en_q,
+                           force_ecc=force_ecc, q_banks=q_banks)
+    is14 = resolution == RES_14BIT
+    tot_limit = N_WORDS if is14 else 7
+    raw_tot = _count_bad(crc_ok, tot_limit)
+    raw_aud = _count_bad(crc_ok, N_AUDIO)
+    enters_cwd = (raw_tot > 2) | ((raw_aud == 2) & (not is14))
+    helpful = (cwd_fixed[:, :tot_limit] & ~crc_ok[:, :tot_limit]).any(-1)
+    use_eff = enters_cwd & helpful
+    sel = lambda a, b: torch.where(
+        use_eff.reshape(use_eff.shape + (1,) * (a.dim() - 1)), b, a)
+    out = BlockBatch(*(sel(a, b) for a, b in zip(r_raw, r_eff)))
+    # line_crc keeps RAW source CRC state even for CWD blocks (setWord in
+    # STG_CWD_CORR does not touch line_crc).
+    out = out._replace(line_crc=torch.where(use_eff[:, None], crc_ok,
+                                            out.line_crc))
+    return out, use_eff
+
+
 def select_auto(r1: BlockBatch, r2: BlockBatch) -> BlockBatch:
     """Auto resolution: keep r1 unless it fails and r2 succeeds."""
     use2 = (r1.stage == STG_BAD_BLOCK) & (r2.stage != STG_BAD_BLOCK)

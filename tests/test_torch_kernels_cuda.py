@@ -141,3 +141,36 @@ def test_decode_frames_kernel_matches_plain(cuda):
                                        use_kernel=False)
         for g, e in zip(got, expect):
             assert g.dtype == e.dtype and torch.equal(g, e)
+
+
+@pytest.mark.parametrize("noise", [0.0, 26.0])
+def test_driver_kernel_path_matches_plain(cuda, tmp_path, noise):
+    """The chip-resident driver on a 12-frame PAL capture: the WAV with
+    K1 (in every round and in the marker-fallback re-decode) equals the
+    WAV of the plain binarize, byte for byte; the clean one equals the
+    golden hash of the JAX package's WAV."""
+    import hashlib
+
+    import chip_smoke
+    from sdvpcmdecoder_tpu_torch.pipeline import device_driver as dd
+    cap = chip_smoke.write_capture(str(tmp_path / "c.y4m"), 12, 294,
+                                   seed=1, noise=noise)
+    wavs = {}
+    for use_kernel in (True, False):
+        out = str(tmp_path / f"o{int(use_kernel)}.wav")
+        before = fb.stc007_fused_decode_frames.launches
+        dec = dd.DeviceBatchDecoder([(cap, out)], hyst_limit=2,
+                                    shift_limit=1, frames_per_round=5,
+                                    device=cuda, use_kernel=use_kernel)
+        dec.run()
+        j = dec.jobs[0]
+        assert fb.stc007_fused_decode_frames.launches - before == (
+            len(j.round_chained) + j.driver.fallback_batches
+            if use_kernel else 0)
+        wavs[use_kernel] = open(out, "rb").read()
+    assert wavs[True] == wavs[False]
+    if noise == 0.0:
+        assert hashlib.sha256(wavs[True]).hexdigest() == \
+            chip_smoke.GOLDEN_SHA256["pal"]
+    else:
+        assert j.driver.fallback_batches > 0

@@ -65,6 +65,21 @@ grp = fb.stc007_fused_decode(px3[0], tuple(coords[0]),
                              *(torch.full((LF,), v, dtype=torch.int32)
                                for v in (110, 20, 200)))
 assert bool(grp.valid.all()) and torch.equal(grp.words, wflat[:LF])
+
+# The chip-resident driver, captures in and WAV out, on the CPU: the
+# native core, the stitcher, V2D and the round, all without JAX.
+import chip_smoke
+from sdvpcmdecoder_tpu_torch.ops import stitch_native as sn
+from sdvpcmdecoder_tpu_torch.pipeline import device_driver as dd2
+with tempfile.TemporaryDirectory() as tmp:
+    cap = chip_smoke.write_capture(f"{tmp}/c.y4m", 6, 294, seed=1)
+    dec = dd2.DeviceBatchDecoder([(cap, f"{tmp}/o.wav")], hyst_limit=2,
+                                 shift_limit=1, frames_per_round=3,
+                                 device="cpu")
+    stats = dec.run()[cap]
+    back, rate = wav.read_wav(f"{tmp}/o.wav")
+assert sn.available() and dec.jobs[0].stitcher.seam_backend == "tpu-spec"
+assert len(back) > 0 and rate == 44100 and stats.lines_valid == 6 * 588
 assert not any(m == "jax" or m.startswith(("jax.", "sdvpcmdecoder_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("SLICE_OK")
@@ -84,6 +99,12 @@ def test_no_source_imports_jax_or_the_jax_package():
         r"|from\s+sdvpcmdecoder_tpu\b(?!_))", re.M)
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    names = {str(p.relative_to(PORT)) for p in files[:-1]}
+    assert {"ops/stitch_native.py", "ops/agc.py", "ops/markers.py",
+            "pipeline/stitcher_stc007.py", "pipeline/v2d.py",
+            "pipeline/batch_driver.py", "pipeline/device_driver.py",
+            "pipeline/ingest.py", "utils/stats.py", "utils/resume.py",
+            "utils/host.py"} <= names
     for path in files:
         text = path.read_text()
         assert "import jax" not in text, path
