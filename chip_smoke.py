@@ -5,7 +5,12 @@ Builds the CUDA kernels of the STC-007 decode chain from csrc/ (K1, the
 per-frame binarize, and K2, the per-group binarize: two entry points of one
 source) and, with g++ at the same time, the native stitcher core from
 sdvpcmdecoder_tpu/native/stitchcore.cpp; checks each kernel against its
-plain torch version on the card, and drives four paths at full PAL size
+plain torch version on the card (also at the round's shape, NTSC lines,
+the marker fallback's 64 x 1 batches, coordinates with stop < start, and
+rows too narrow or misaligned for the TMA), checks with torch.profiler
+that a wrapper call is one kernel launch and no copy, times K1 at 16 and
+128 frames, NORMAL and INSANE, beside its bound and with its wrapper's
+host time, and drives four paths at full PAL size
 (588 lines x 1152 px): decode_frames on 128 frames through the audio
 masker and the WAV writer; K2 on single-frame groups; the chip-resident
 round (steady_round_packed), 4 chained rounds of 16 frames on a staged
@@ -157,6 +162,20 @@ def compare_k1(tag, px, cd, levels, limits):
     return err
 
 
+def plain_staged(px):
+    """Copies of pixels [..., W] that the kernel must stage with plain
+    loads, keyed by a tag: two columns narrower (W - 2 is not a multiple
+    of 16), and a contiguous tensor 1 byte past a 16-byte boundary."""
+    narrow = px[..., :-2].contiguous()
+    buf = torch.empty(px.numel() + 16, dtype=torch.uint8, device=px.device)
+    ofs = (1 - buf.data_ptr()) % 16
+    shifted = buf[ofs:ofs + px.numel()].view(px.shape)
+    shifted.copy_(px)
+    check(narrow.shape[-1] % 16 != 0 and shifted.data_ptr() % 16 == 1
+          and shifted.is_contiguous(), "plain-staging inputs")
+    return {f"width {narrow.shape[-1]}": narrow, "1-byte offset": shifted}
+
+
 def max_batch_err(tag, got, expect):
     """Max abs difference over every LineBatch field (dtypes and shapes
     must agree)."""
@@ -245,21 +264,139 @@ def median_ms_abab(fn_a, fn_b, rounds=5):
     return statistics.median(times[0]), statistics.median(times[1])
 
 
-def kernel_device_ms(fn, kernel_name, calls=5):
-    """Mean device time of one CUDA kernel per call of fn, from
-    torch.profiler's CUPTI trace of `calls` calls after one warm-up."""
+def k1_host_ms(fn, calls=50):
+    """Host-clock ms of one call of fn, a call of the K1 wrapper, and of
+    the two spans inside it: fused_binarize._launch (output allocation and
+    the C call) and the C entry point alone (launch geometry and the
+    launch). Medians over `calls` calls after one warm-up, with no
+    synchronize between calls (the kernel is shorter than a call)."""
+    from sdvpcmdecoder_tpu_torch.ops import _kernels
+    from sdvpcmdecoder_tpu_torch.ops import fused_binarize as fb
+    lib = _kernels.load("stc007_binarize")
+    spans = {"wrapper": [], "launch": [], "c_entry": []}
+
+    def timed(f, key):
+        def call(*args, **kw):
+            t0 = time.perf_counter()
+            out = f(*args, **kw)
+            spans[key].append(time.perf_counter() - t0)
+            return out
+        return call
+    launch, entry = fb._launch, lib.stc007_binarize_frames
+    fb._launch = timed(launch, "launch")
+    lib.stc007_binarize_frames = timed(entry, "c_entry")
+    try:
+        whole = timed(fn, "wrapper")
+        whole()
+        torch.cuda.synchronize()
+        for s in spans.values():
+            s.clear()
+        for _ in range(calls):
+            whole()
+        torch.cuda.synchronize()
+    finally:
+        fb._launch, lib.stc007_binarize_frames = launch, entry
+    return {k: statistics.median(s) * 1e3 for k, s in spans.items()}
+
+
+def cuda_profile(fn, calls, done):
+    """torch.profiler's CUDA rows (key_averages) over `calls` calls of fn,
+    after one warm-up call. CUPTI now and then hands back a trace without
+    some of the launches it saw; a trace for which done(rows) is false is
+    taken again, up to three times in all."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if kernel_name in e.key]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        if done(rows):
+            break
+    return rows
+
+
+def kernel_device_ms(fn, kernel_name, calls=5):
+    """Mean device time of one CUDA kernel per call of fn, from
+    torch.profiler's CUPTI trace of `calls` calls after one warm-up."""
+    def kernel(rows):
+        return [e for e in rows if kernel_name in e.key]
+    rows = kernel(cuda_profile(
+        fn, calls, lambda r: [e.count for e in kernel(r)] == [calls]))
     check(len(rows) == 1 and rows[0].count == calls,
           f"profiler saw {[(e.key, e.count) for e in rows]} for "
           f"{kernel_name}")
     return rows[0].self_device_time_total / calls / 1e3
+
+
+def cuda_rows(fn):
+    """What one call of fn puts on the card, after one warm-up call: the
+    kernel names and the memory copies/sets among torch.profiler's CUDA
+    rows, one entry per launch."""
+    rows = {"kernels": [], "copies": []}
+    for e in cuda_profile(fn, 1, bool):
+        copy = "Memcpy" in e.key or "Memset" in e.key
+        name = e.key if copy else e.key.removeprefix("void ") \
+            .removeprefix("(anonymous namespace)::").split("(")[0]
+        rows["copies" if copy else "kernels"] += [name] * e.count
+    return rows
+
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 peak rate
+# The INT32 issue rate: 64 INT32 lanes per SM against the 128 FP32 lanes
+# behind the 67 TFLOP/s float32 peak (which counts an FMA as 2), a quarter.
+INT_OPS_PER_S = 67e12 / 4
+OPS_PER_STEP = 8            # load, 2 compares, select, shift, or, and, xor
+OUT_BYTES_PER_LINE = 49     # words 32, crc_read/crc_calc/hyst/shift 16,
+#                             valid 1
+SECTOR = 32                 # bytes: the memory's least transfer
+
+
+def k1_bound(pixels, coords, batch, levels, limits):
+    """(bound ms, "bytes" or "operations", bytes, ops) of one K1 call on
+    pixels [F, L, W] and coords [F, 2].
+
+    Bytes: of each row, the 32-byte sectors from the least to the largest
+    bit-centre column of the shift stages its line reads (a line's result
+    depends on no other pixel), plus the coordinates and levels read once
+    and the outputs written once, over the memory rate. Ops: the Schmitt
+    steps this data needs (the reads of the serial trial loop with early
+    exit, counted from the plain version's picks) at OPS_PER_STEP over
+    INT_OPS_PER_S. levels are [F] or [F, L]."""
+    from sdvpcmdecoder_tpu_torch.formats import stc007
+    from sdvpcmdecoder_tpu_torch.ops import binarize as bz
+    F, L, W = pixels.shape
+    n_h, n_s = limits[0] + 1, limits[1] + 1
+    ref, black, white = (t[:, None].expand(F, L) if t.dim() == 1 else t
+                         for t in levels)
+    hs = torch.arange(n_h, device=pixels.device)
+    ok = ((ref[..., None] - hs).clamp(min=1) > black[..., None]) \
+        & ((ref[..., None] + hs).clamp(max=254) < white[..., None])
+    h_pick = torch.where(batch.valid, batch.hyst, n_h)[..., None]
+    full = (ok & (hs < h_pick)).sum(-1) * n_s       # every stage of h < h*
+    last = torch.where(batch.valid, batch.shift + 1, 0)
+    reads = 1 + full + last - ok[..., 0].long()     # (0, 0) read once
+    # The last stage a line reads: all after a whole hysteresis row, else
+    # those up to its pick, else only trial (0, 0)'s.
+    top = torch.where(full > 0, n_s - 1,
+                      torch.where(batch.valid, batch.shift, 0)).long()
+    cols = bz.stc007_frame_bit_coords(coords, n_s, W).long()   # [F, S, 128]
+    lo = cols.amin(-1).cummin(-1).values.gather(1, top)        # [F, L]
+    hi = cols.amax(-1).cummax(-1).values.gather(1, top)
+    row = pixels.data_ptr() % SECTOR + W * torch.arange(
+        F * L, device=pixels.device).reshape(F, L)
+    sectors = (row + hi) // SECTOR - (row + lo) // SECTOR + 1
+    in_bytes = int(sectors.sum()) * SECTOR + sum(
+        t.numel() * t.element_size() for t in (coords, *levels))
+    n_bytes = in_bytes + F * L * OUT_BYTES_PER_LINE
+    ops = int(reads.sum()) * stc007.BITS_PCM_DATA * OPS_PER_STEP
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / INT_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", n_bytes, ops)
 
 
 def tree_digest(path):
@@ -369,7 +506,35 @@ def main():
     errs.append(compare_k1(f"ragged 1 frame x {ragged} lines",
                            px[:1, :ragged].contiguous(), cd[:1],
                            frame_levels(1, dev), NORMAL))
-    del px, cd, per_line
+    nr = ROUND_FRAMES
+    errs.append(compare_k1(f"round shape {nr} frames sigma=30", px[:nr],
+                           cd[:nr], frame_levels(nr, dev), NORMAL))
+    errs.append(compare_k1("NTSC 4 frames x 490 lines",
+                           px[:4, :490].contiguous(), cd[:4],
+                           frame_levels(4, dev), NORMAL))
+    # The marker fallback's batches: 64 single lines, each with its own
+    # coordinates (v2d._marker_fallback).
+    fb_px = px[0, :64].reshape(64, 1, WIDTH).contiguous()
+    fb_cd = cd[:1].expand(64, 2) \
+        + (torch.arange(64, device=dev) % 9 - 4)[:, None]
+    errs.append(compare_k1("fallback shape 64 x 1 line", fb_px,
+                           fb_cd.contiguous(), frame_levels(64, dev),
+                           NORMAL))
+    # stop < start: a negative pixel pitch, where C's `/` truncates and
+    # torch's `//` floors; some coordinates past both edges.
+    rng = np.random.default_rng(3)
+    start = rng.integers(200, WIDTH + 40, 8)
+    stop = start - rng.integers(1, 900, 8)
+    stop[::3] = rng.integers(-300, 40, 3)
+    rev = torch.from_numpy(np.stack([start, stop], 1)).to(dev)
+    errs.append(compare_k1("stop < start, 8 frames INSANE", px[:8], rev,
+                           frame_levels(8, dev), INSANE))
+    # Rows the TMA cannot copy (a width or an address that is not a
+    # multiple of 16 bytes): the kernel stages them with plain loads.
+    for tag, x in plain_staged(px[:4, :300]).items():
+        errs.append(compare_k1(f"{tag}, 4 frames x 300 lines INSANE", x,
+                               cd[:4], frame_levels(4, dev), INSANE))
+    del px, cd, per_line, fb_px
 
     # -- phase 3: the slice at full size -----------------------------------
     n_frames = FRAMES
@@ -433,19 +598,63 @@ def main():
         print(f"[slice] decode_frames {name} on a {resolution}-bit stream, "
               f"{nm} frames: samples equal the input; kernel path == plain")
 
-    # -- phase 4: timing ------------------------------------------------------
-    k_ms, p_ms = median_ms_abab(
-        lambda: fb.stc007_fused_decode_frames(px, cd, *levels, *NORMAL),
-        lambda: bz.stc007_frame_decode(px, cd, *levels, *NORMAL))
-    print(f"[time] K1 stc007_fused_decode_frames {n_frames}x{PAL_LINES}x"
-          f"{WIDTH} NORMAL: {k_ms} ms; plain stc007_frame_decode: {p_ms} ms "
-          f"(CUDA events, median of 5, alternating) on {card}")
-    kern_ms = kernel_device_ms(
-        lambda: fb.stc007_fused_decode_frames(px, cd, *levels, *NORMAL),
-        "stc007_binarize_frames_kernel")
-    print(f"[time] K1 kernel alone (device time, the rest of the wrapper is "
-          f"torch: bit coordinates, levels, calc_crc): {kern_ms} ms "
-          f"(torch.profiler, mean of 5) on {card}")
+    # -- phase 4: one launch per call, and the timing of K1 ----------------
+    glv = [t[0].expand(PAL_LINES) for t in levels]
+    gcoords = (int(cd[0, 0]), int(cd[0, 1]))
+    r = ROUND_FRAMES
+    calls = {
+        "stc007_fused_decode_frames": lambda: fb.stc007_fused_decode_frames(
+            px[:r], cd[:r], *(t[:r] for t in levels), *NORMAL),
+        "stc007_fused_decode": lambda: fb.stc007_fused_decode(
+            px[0], gcoords, *glv, *NORMAL)}
+    for name, fn in calls.items():
+        rows = cuda_rows(fn)
+        print(f"[launch] {name}: one call puts {len(rows['kernels'])} "
+              f"kernel(s) {sorted(set(rows['kernels']))} and "
+              f"{len(rows['copies'])} copies {rows['copies']} on the card "
+              f"(torch.profiler CUDA rows)")
+        check(rows["kernels"] == ["stc007_binarize_frames_kernel"]
+              and not rows["copies"],
+              f"{name}: not one kernel launch without copies: {rows}")
+
+    # sigma ~30: the clean capture plus noise made on the card.
+    gen = torch.Generator(device=dev).manual_seed(5)
+    noisy_px = (px.float() + 28.3 * torch.randn(
+        px.shape, generator=gen, device=dev)).round().clamp(0, 255) \
+        .to(torch.uint8)
+    k1_times = []
+    for nf in (ROUND_FRAMES, n_frames):
+        for mode, limits, frames in (("NORMAL sigma=10", NORMAL, px),
+                                     ("INSANE sigma=30", INSANE, noisy_px)):
+            x, c, lv = frames[:nf], cd[:nf], [t[:nf] for t in levels]
+            w_ms, p_ms = median_ms_abab(
+                lambda: fb.stc007_fused_decode_frames(x, c, *lv, *limits),
+                lambda: bz.stc007_frame_decode(x, c, *lv, *limits))
+            kern_ms = kernel_device_ms(
+                lambda: fb.stc007_fused_decode_frames(x, c, *lv, *limits),
+                "stc007_binarize_frames_kernel")
+            host = k1_host_ms(
+                lambda: fb.stc007_fused_decode_frames(x, c, *lv, *limits))
+            batch = bz.stc007_frame_decode(x, c, *lv, *limits)
+            bound_ms, bound_by, n_bytes, ops = k1_bound(x, c, batch, lv,
+                                                        limits)
+            t = dict(frames=nf, mode=mode, kernel_ms=kern_ms,
+                     wrapper_ms=w_ms, plain_ms=p_ms, bound_ms=bound_ms,
+                     bound_by=bound_by, bound_share=bound_ms / kern_ms,
+                     bytes=n_bytes, ops=ops, host_ms=host,
+                     valid=int(batch.valid.sum()))
+            k1_times.append(t)
+            print(f"[time] K1 {nf}x{PAL_LINES}x{WIDTH} {mode}: kernel "
+                  f"{kern_ms} ms (torch.profiler, mean of 5); wrapper "
+                  f"{w_ms} ms, plain {p_ms} ms (CUDA events, median of 5, "
+                  f"alternating); wrapper host ms {host} (host clock, "
+                  f"median of 50); bound {bound_ms} ms by {bound_by} "
+                  f"({n_bytes} B at 3.35 TB/s, {ops} int ops at "
+                  f"{INT_OPS_PER_S / 1e12} T/s); share of the bound "
+                  f"{bound_ms / kern_ms}; valid {t['valid']}/"
+                  f"{nf * PAL_LINES} on {card}")
+    del noisy_px
+    k_main = k1_times[0]   # the round's shape at NORMAL: the main path
     secs = []
     for _ in range(6):
         t0 = time.perf_counter()
@@ -472,6 +681,9 @@ def main():
              compare_k2(f"ragged {ragged} lines", group[:ragged].contiguous(),
                         gcd, tuple(t[:ragged].contiguous() for t in glev),
                         NORMAL)]
+    errs2 += [compare_k2(f"{tag}, {ragged} lines", x, gcd,
+                         tuple(t[:ragged].contiguous() for t in glev), INSANE)
+              for tag, x in plain_staged(group[:ragged]).items()]
 
     # -- phase 6: K2's path -- single-frame groups of the clean capture -----
     ng = GROUP_FRAMES
@@ -577,14 +789,23 @@ def main():
           f"{WIDTH} NORMAL: kernel path {rk_ms} ms = {F / rk_ms * 1e3} "
           f"frames/s; plain path {rp_ms} ms = {F / rp_ms * 1e3} frames/s "
           f"(CUDA events, median of 5, alternating) on {card}")
-    k2_ms, k2p_ms = median_ms_abab(
-        lambda: fb.stc007_fused_decode(group, (int(gcd[0]), int(gcd[1])),
-                                       *glev, *NORMAL),
+    gc = (int(gcd[0]), int(gcd[1]))
+    k2_call = (lambda: fb.stc007_fused_decode(group, gc, *glev, *NORMAL))
+    k2w_ms, k2p_ms = median_ms_abab(
+        k2_call,
         lambda: bz.stc007_frame_decode(group[None], gcd[None],
                                        *(t[None] for t in glev), *NORMAL))
-    print(f"[time] K2 stc007_fused_decode {PAL_LINES}x{WIDTH} NORMAL: "
-          f"{k2_ms} ms; plain stc007_frame_decode: {k2p_ms} ms (CUDA "
-          f"events, median of 5, alternating) on {card}")
+    k2_ms = kernel_device_ms(k2_call, "stc007_binarize_frames_kernel")
+    k2_batch = bz.stc007_frame_decode(group[None], gcd[None],
+                                      *(t[None] for t in glev), *NORMAL)
+    k2_bound, k2_by, k2_bytes, k2_ops = k1_bound(
+        group[None], gcd[None], k2_batch, [t[None] for t in glev], NORMAL)
+    print(f"[time] K2 stc007_fused_decode {PAL_LINES}x{WIDTH} NORMAL "
+          f"sigma=30 per-line levels: kernel {k2_ms} ms (torch.profiler, "
+          f"mean of 5); wrapper {k2w_ms} ms, plain stc007_frame_decode "
+          f"{k2p_ms} ms (CUDA events, median of 5, alternating); bound "
+          f"{k2_bound} ms by {k2_by} ({k2_bytes} B, {k2_ops} int ops); "
+          f"share of the bound {k2_bound / k2_ms} on {card}")
 
     # -- phase 9: the native stitcher core (built beside nvcc in phase 1) --
     nb = native_build.result()
@@ -712,12 +933,21 @@ def main():
                    "driver_golden": launches_golden,
                    "driver_full_width": launches_driver,
                    "driver_noisy": launches_noisy}
+    # ms: the kernel's device time at the main path's shape (the round's
+    # 16 x 588 x 1152, NORMAL); the other shapes and modes in "timings".
+    # No single PyTorch call computes the trial grid: library_ms is null.
     print(json.dumps({"kernels": [
         dict(KERNEL, launches=sum(launches_k1.values()),
-             max_abs_err=max(errs), ms=k_ms, plain_ms=p_ms,
-             launches_by_path=launches_k1),
+             max_abs_err=max(errs), ms=k_main["kernel_ms"],
+             plain_ms=k_main["plain_ms"], bound_ms=k_main["bound_ms"],
+             bound_by=k_main["bound_by"], library_ms=None,
+             bound_share=k_main["bound_share"],
+             wrapper_ms=k_main["wrapper_ms"], launches_by_path=launches_k1,
+             timings=k1_times),
         dict(KERNEL2, launches=launches2, max_abs_err=max(errs2),
-             ms=k2_ms, plain_ms=k2p_ms)]}))
+             ms=k2_ms, plain_ms=k2p_ms, bound_ms=k2_bound, bound_by=k2_by,
+             library_ms=None, bound_share=k2_bound / k2_ms,
+             wrapper_ms=k2w_ms)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -26,14 +26,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_OUTS = [_P] * 6   # words, crc_read, crc_calc, valid, hyst, shift
 # C signatures: library -> function -> (restype, argtypes).
 SIGNATURES = {
     "stc007_binarize": {
-        "stc007_binarize_frames": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                        _I, _I, _I, _I, _P, _P, _P, _P, _P,
+        # pixels; coords, coords64, cs0, cs1; (level, sf, sl) x 3;
+        # synd_rows, synd_const, crc_const; F, L, W, n_h, n_s, tile;
+        # outputs; stream.
+        "stc007_binarize_frames": (_I, [_P, _P, _I, _L, _L, _P, _L, _L,
+                                        _P, _L, _L, _P, _L, _L, _P, _I, _I,
+                                        _I, _I, _I, _I, _I, _I, *_OUTS,
                                         _P]),
-        "stc007_binarize_group": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I,
-                                       _I, _I, _I, _P, _P, _P, _P, _P, _P]),
+        # pixels; start, stop; (level, sl) x 3; synd_rows, synd_const,
+        # crc_const; L, W, n_h, n_s, tile; outputs; stream.
+        "stc007_binarize_group": (_I, [_P, _I, _I, _P, _L, _P, _L, _P, _L,
+                                       _P, _I, _I, _I, _I, _I, _I, _I,
+                                       *_OUTS, _P]),
         "stc007_error_string": (ctypes.c_char_p, [_I]),
     },
 }

@@ -140,6 +140,23 @@ def _pack_weights():
     return wmat
 
 
+@functools.lru_cache(maxsize=None)
+def kernel_syndrome_rows():
+    """The constants the CUDA kernel takes by value: the 128 rows of the
+    syndrome table packed into uint32 (bit j of row i = table[i, j]), the
+    syndrome constant, and the CONST of crc16_linear_table(112). A read's
+    syndrome is the XOR of the rows of its set bits (valid when it equals
+    the syndrome constant), and its calc_crc is syndrome ^ crc_read ^ CONST:
+    rows 0..111 are the CRC rows of the word bits, rows 112..127 map the
+    read CRC onto itself."""
+    table, synd_const = _syndrome_const()
+    rows = (table.astype(np.uint32)
+            << np.arange(16, dtype=np.uint32)).sum(1, dtype=np.uint32)
+    _, crc_const = crc_mod.crc16_linear_table(stc007.N_WORDS
+                                              * stc007.BITS_PER_WORD)
+    return np.ascontiguousarray(rows), int(synd_const), int(crc_const)
+
+
 def _table(table, host_table, device):
     if table is None:
         return torch.as_tensor(host_table, device=device)

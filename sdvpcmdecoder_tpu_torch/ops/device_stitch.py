@@ -222,7 +222,7 @@ def _bucket(n, step=128):
 
 
 def eval_rows_arrays(line_words_i32, line_crc8, rows, start, n_blocks,
-                     res_mode, en_p, en_q, force_ecc, m2, *, device="cpu"):
+                     res_mode, en_p, en_q, force_ecc, m2, *, device="cuda"):
     """Device twin of stitch_native.eval_rows_arrays: one call on
     `device`. rows=None means contiguous shifts from `start`. The line
     buffer is zero-padded to a 128-line bucket, as in the JAX package, so
@@ -313,7 +313,7 @@ def _top_aligned_head(words, crc8, cap=KEEP):
 
 
 def seam_sweep(f1_words, f1_crc8, f2_words, f2_crc8, silent_w32, modes,
-               en_p, en_q, m2, unch_lim, *, device="cpu"):
+               en_p, en_q, m2, unch_lim, *, device="cuda"):
     """Host wrapper: all-paddings seam stats on `device`.
 
     f1/f2 words [n,8] i32 + crc8 [n,8] bool (full fields; only the

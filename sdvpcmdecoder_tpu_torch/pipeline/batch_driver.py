@@ -63,7 +63,7 @@ class BatchDecoder:
                  normal_sweep_prescan=False, seam_backend="auto",
                  mode_m2=False, preset_video=None,
                  preset_order=None, preset_resolution=None,
-                 preset_sample_rate=None, device="cpu", use_kernel=None):
+                 preset_sample_rate=None, device="cuda", use_kernel=None):
         self.jobs = [CaptureJob(path=p, out_path=o) for p, o in jobs]
         self.frames_per_round = frames_per_round
         self.checkpoint = checkpoint

@@ -132,7 +132,7 @@ def decode_frames(pixels, coords, ref_level, black, white,
 
 
 def decode_to_numpy(pixels, coords, black=20, white=200, ref_level=None,
-                    device="cpu", **kw):
+                    device="cuda", **kw):
     """Host convenience wrapper around decode_stream on `device` (auto
     centre reference level). Returns numpy arrays."""
     L = pixels.shape[0]

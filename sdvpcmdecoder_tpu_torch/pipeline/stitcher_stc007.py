@@ -24,6 +24,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from ..formats import stc007
 from ..ops import deinterleave as di
@@ -589,7 +590,7 @@ def _res_mode_is16(res_mode):
 def eval_blocks(store: LineStore, res_mode, ignore_crc=False,
                 force_ecc=True, en_p=True, en_q=True, en_cwd=False,
                 start=0, stop=None, m2=False, full_aux=True,
-                backend=None, device="cpu"):
+                backend=None, device="cuda"):
     """Run the vectorized deinterleaver over shifts [start, stop).
 
     Equivalent of the reference's serial processBlock sweep. Returns
@@ -622,7 +623,7 @@ def eval_blocks(store: LineStore, res_mode, ignore_crc=False,
 def eval_rows(store: LineStore, rows, res_mode, ignore_crc=False,
               force_ecc=True, en_p=True, en_q=True, en_cwd=False, m2=False,
               full_aux=True, start=0, n_blocks=None, backend=None,
-              device="cpu"):
+              device="cuda"):
     """eval_blocks core over explicit per-block line rows [B, 8].
 
     rows[b, w] is the absolute line index feeding interleave tap w of
@@ -763,7 +764,7 @@ def _eval_rows_native(store, rows, crc_ok, cwd_line, res_mode, force_ecc,
 
 
 def _eval_rows_tpu(store, rows, crc_ok, res_mode, force_ecc, en_p, en_q,
-                   m2, full_aux=True, start=0, n_blocks=None, device="cpu"):
+                   m2, full_aux=True, start=0, n_blocks=None, device="cuda"):
     """eval_rows via the device (ops.device_stitch.eval_rows_arrays):
     gather + ECC + flags + samples in one jitted dispatch, the compute
     path of the --backend tpu stitcher; output contract identical to
@@ -880,7 +881,7 @@ class STC007Stitcher:
                  max_unch_14=MAX_BURST_UNCH_14BIT,
                  max_unch_16=MAX_BURST_UNCH_16BIT, fix_cut_above=False,
                  auto_m2=False, record_views=False, seam_backend="auto",
-                 device="cpu"):
+                 device="cuda"):
         # seam_backend: "auto" (native when compiled, else numpy) or
         # "tpu" — the stitcher's compute (padding search scored in one
         # batched dispatch per seam, field resolution counts, and the
@@ -889,7 +890,7 @@ class STC007Stitcher:
         # the finalize masking tail stay host Python.  "tpu" names the
         # device backend; `device` is the torch device it runs on.
         self.seam_backend = seam_backend
-        self.device = device
+        self.device = torch.device(device)
         self.en_p, self.en_q, self.en_cwd = en_p, en_q, en_cwd
         self.ignore_crc = ignore_crc
         self.mode_m2 = mode_m2

@@ -166,7 +166,7 @@ class V2DDriver:
                  preset: agc.BinPreset | None = None,
                  ref_sweep=False, sweep_step=4, min_valid_crcs=5,
                  forced_coords=None, ref_sweep_fallback=False,
-                 per_line_agc=False, dup_detect=True, device="cpu",
+                 per_line_agc=False, dup_detect=True, device="cuda",
                  use_kernel=None, m2=False, normal_sweep_prescan=False,
                  coord_skip=True):
         if ref_sweep or ref_sweep_fallback:

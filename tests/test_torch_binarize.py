@@ -182,6 +182,130 @@ def test_fused_wrapper_matches_pallas_interpret():
     assert_batch(got, expect)
 
 
+@pytest.mark.parametrize("case", ["fallback_64x1", "stop_before_start"])
+def test_fused_wrapper_matches_pallas_interpret_shapes(case):
+    """As above, at the marker fallback's [64, 1, W] batches (64 single
+    lines, each with its own coordinates) and on coordinates with
+    stop < start (a negative pitch: torch's `//` floors), on every field
+    of every line."""
+    if case == "fallback_64x1":
+        pixels, coords = noisy_frames(1, 64, seed=15, sigma=30.0)
+        px = pixels.reshape(64, 1, -1)
+        cd = (coords + np.arange(-32, 32)[:, None]).astype(np.int32)
+        F = 64
+    else:
+        px, _ = noisy_frames(3, 40, seed=16, sigma=30.0)
+        cd = np.array([[900, 100], [1100, 1050], [300, -200]], np.int32)
+        F = 3
+    ref = np.full(F, 110, np.int32)
+    blk = np.full(F, 5, np.int32)
+    wht = np.full(F, 250, np.int32)
+    expect = jpb.stc007_fused_decode_frames(
+        jnp.asarray(px), jnp.asarray(cd), jnp.asarray(ref), jnp.asarray(blk),
+        jnp.asarray(wht), 2, 1, tile_lines=8)
+    got = fb.stc007_fused_decode_frames(
+        torch.from_numpy(px), torch.from_numpy(cd), torch.from_numpy(ref),
+        torch.from_numpy(blk), torch.from_numpy(wht), 2, 1, tile_lines=8)
+    assert_batch(got, expect)
+    if case == "fallback_64x1":
+        assert 0 < got.valid.numpy().sum() < F
+
+
+def kernel_read(bits):
+    """What the CUDA kernel computes from a read's bits [N, 128] with the
+    constants the wrapper hands it: the syndrome (XOR of the packed rows of
+    the set bits), the read CRC and crc_calc = syndrome ^ crc_read ^
+    CONST. numpy, uint32."""
+    rows, _, crc_const = bz.kernel_syndrome_rows()
+    synd = np.bitwise_xor.reduce(np.where(bits.astype(bool), rows, 0),
+                                 axis=1).astype(np.uint32)
+    crc_read = (bits[:, 112:].astype(np.uint32)
+                << np.arange(15, -1, -1, dtype=np.uint32)).sum(1)
+    return synd, crc_read, (synd ^ crc_read ^ crc_const) & 0xFFFF
+
+
+def test_kernel_syndrome_rows_reproduce_calc_crc_and_syndrome():
+    """The packed rows and constants the wrapper hands the kernel give the
+    syndrome of bz._syndrome (valid iff it equals the syndrome constant)
+    and crc_calc equal to stc007.calc_crc over the words, of both
+    packages, on seeded random reads and on all-zero and all-one lines."""
+    from sdvpcmdecoder_tpu.formats import crc as jcrc
+    from sdvpcmdecoder_tpu.formats import stc007 as jstc
+    from sdvpcmdecoder_tpu_torch.formats import stc007
+    rows, synd_const, crc_const = bz.kernel_syndrome_rows()
+    assert rows.dtype == np.uint32 and rows.shape == (128,)
+    assert synd_const == crc_const == stc007.CRC_SILENT
+    rng = np.random.default_rng(17)
+    bits = rng.integers(0, 2, (500, 128)).astype(np.int32)
+    bits[0], bits[1] = 0, 1
+    # Valid lines too: the encoder's words with their own CRC.
+    words = rng.integers(0, 1 << 14, (20, 8)).astype(np.int32)
+    crc = np.asarray(jstc.calc_crc(jnp.asarray(words)), np.int32)
+    bits[2:22] = np.asarray(jstc.words_to_data_bits(jnp.asarray(words),
+                                                    jnp.asarray(crc)))
+    synd, crc_read, crc_calc = kernel_read(bits)
+    table, const = bz._syndrome_const()
+    tbits = torch.from_numpy(bits)
+    expect_synd = bz._syndrome(tbits, torch.from_numpy(table)).numpy()
+    np.testing.assert_array_equal(synd ^ synd_const, expect_synd)
+    jsynd = jcrc.pack_bits_to_u16(jnp.matmul(
+        jnp.asarray(bits), jnp.asarray(table),
+        preferred_element_type=jnp.int32) & 1) ^ const   # as jbz's trials
+    np.testing.assert_array_equal(synd ^ synd_const, np.asarray(jsynd))
+    assert (expect_synd[2:22] == 0).all() and (expect_synd != 0).sum() > 400
+    twords, tcrc = stc007.data_bits_to_words(tbits)
+    np.testing.assert_array_equal(crc_read, tcrc.numpy())
+    np.testing.assert_array_equal(crc_calc, stc007.calc_crc(twords).numpy())
+    np.testing.assert_array_equal(
+        crc_calc, np.asarray(jstc.calc_crc(jnp.asarray(twords.numpy()))))
+    # The kernel's stage shifts are uniform: the two tables are equal.
+    np.testing.assert_array_equal(bz.PIX_SH_BG, bz.PIX_SH_ED)
+
+
+def test_k1_bound_counts_what_the_data_needs():
+    """chip_smoke.k1_bound against the serial trial loop walked line by
+    line: its bytes are, of each row, the 32-byte sectors between the
+    least and the largest bit-centre column of the shift stages the line
+    reads, plus coordinates, levels and 49 output bytes a line; its ops
+    are 128 Schmitt steps of 8 ops per trial read."""
+    import chip_smoke
+    F, L, (n_h, n_s) = 2, 40, chip_smoke.INSANE
+    n_h, n_s = n_h + 1, n_s + 1
+    px, cd = (torch.from_numpy(a) for a in noisy_frames(F, L, seed=21))
+    ref, blk, wht = (torch.from_numpy(a)
+                     for a in levels(F, L, per_line=True, seed=22))
+    batch = bz.stc007_frame_decode(px, cd, ref, blk, wht, n_h - 1, n_s - 1)
+    cols = bz.stc007_frame_bit_coords(cd, n_s, px.shape[2]).numpy()
+    n_bytes, reads = 0, 0
+    for f in range(F):
+        for l in range(L):
+            r, b, w = int(ref[f, l]), int(blk[f, l]), int(wht[f, l])
+            pick = ((int(batch.hyst[f, l]), int(batch.shift[f, l]))
+                    if batch.valid[f, l] else None)
+            stages, n = {0}, 1                   # trial (0, 0), read once
+            for h in range(n_h):
+                if not (max(r - h, 1) > b and min(r + h, 254) < w):
+                    continue
+                for s in range(n_s):
+                    n += (h, s) != (0, 0)
+                    stages.add(s)
+                    if (h, s) == pick:
+                        break
+                if pick is not None and h == pick[0]:
+                    break
+            reads += n
+            span = cols[f, sorted(stages)]
+            row = px.data_ptr() % 32 + (f * L + l) * px.shape[2]
+            n_bytes += 32 * ((row + span.max()) // 32
+                             - (row + span.min()) // 32 + 1)
+    n_bytes += cd.numel() * 4 + 3 * F * L * 4 + F * L * 49
+    _, by, got_bytes, got_ops = chip_smoke.k1_bound(
+        px, cd, batch, (ref, blk, wht), (n_h - 1, n_s - 1))
+    assert (got_bytes, got_ops) == (n_bytes, reads * 128 * 8)
+    assert by == "bytes" and reads > F * L    # some lines ran more trials
+    assert n_bytes < px.numel() + F * L * 49  # less than every whole row
+
+
 def test_group_wrapper_matches_pallas_interpret():
     """K2's wrapper (one group of lines sharing coordinates, per-line
     levels) on a CPU tensor runs its plain version; it equals the Pallas

@@ -153,7 +153,7 @@ def test_decode_to_numpy_and_wav_match_jax(tmp_path):
         width=W, ppb=8.0, noise_sigma=35.0, rng=rng)
     pixels[60:64] = 0                                  # a short dropout
     got = decoder.decode_to_numpy(pixels, coords, hyst_limit=1,
-                                  shift_limit=1)
+                                  shift_limit=1, device="cpu")
     expect = jdecoder.decode_to_numpy(pixels, coords, hyst_limit=1,
                                       shift_limit=1)
     for g, e in zip(got, expect):

@@ -219,7 +219,7 @@ def test_eval_rows_arrays_matches_jax(explicit_rows):
         cfg = dict(en_p=True, en_q=True, force_ecc=True, m2=False)
     for res_mode in MODES:
         args = (words, ok, rows, 5, 150, res_mode, *cfg.values())
-        got = ds.eval_rows_arrays(*args)
+        got = ds.eval_rows_arrays(*args, device="cpu")
         expect = jds.eval_rows_arrays(*args)
         for k, (g, e) in enumerate(zip(got, expect)):
             assert_same(g, e, f"res_mode={res_mode} output {k}")
@@ -247,7 +247,7 @@ def test_seam_sweep_matches_jax(n1, n2, en_p, en_q, m2, per_pad, n_modes):
             else 4)
     silent = np.asarray(jst.silent_words(m2=m2), np.int32)
     args = (w1, c1, w2, c2, silent, modes, en_p, en_q, m2, unch)
-    stats, has = ds.seam_sweep(*args)
+    stats, has = ds.seam_sweep(*args, device="cpu")
     jstats, jhas = jds.seam_sweep(*args)
     assert_same(stats, jstats, "stats")
     assert_same(has, jhas, "has")

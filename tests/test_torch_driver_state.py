@@ -191,11 +191,11 @@ def test_pal_576_line_capture_presets_pal(tmp_path):
     the field-height rule, not an exact-294 match."""
     cap = capture(tmp_path, "p576", 2, lpf=288, seed=3)
     d = tbd.BatchDecoder([(cap, str(tmp_path / "o.wav"))],
-                         lines_per_field=None)
+                         lines_per_field=None, device="cpu")
     assert d.jobs[0].stitcher.preset_video == tst.VID_PAL
     cap = capture(tmp_path, "n", 2, lpf=NTSC, seed=3)
     d = tbd.BatchDecoder([(cap, str(tmp_path / "o.wav"))],
-                         lines_per_field=None)
+                         lines_per_field=None, device="cpu")
     assert d.jobs[0].stitcher.preset_video == tst.VID_NTSC
 
 
@@ -232,7 +232,8 @@ def test_build_stores_matches_jax(tmp_path):
     forced = rng.random(L) < 0.05
     stores = []
     for bd, v2d in ((jbd, jv2d), (tbd, tv2d)):
-        dec = bd.BatchDecoder([(cap, str(tmp_path / "o.wav"))])
+        kw = {} if bd is jbd else {"device": "cpu"}
+        dec = bd.BatchDecoder([(cap, str(tmp_path / "o.wav"))], **kw)
         res = v2d.FrameDecodeResult(words, crc, valid, 110, 20, 200,
                                     (40, 1100), np.zeros(L, bool), forced)
         stores.append((dec._build_stores_stc007(dec.jobs[0], [res, None],
@@ -288,10 +289,33 @@ def test_device_is_required_and_streaming_loops_wait(tmp_path):
     with pytest.raises(TypeError):
         tdd.DeviceBatchDecoder(jobs)
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tbd.BatchDecoder(jobs).run()
+        tbd.BatchDecoder(jobs, device="cpu").run()
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tbd.BatchDecoder(jobs, fmt="pcm1")
+        tbd.BatchDecoder(jobs, fmt="pcm1", device="cpu")
     dec = tdd.DeviceBatchDecoder(jobs, device="cpu")
     assert tuple(dec.jobs[0].px_dev.shape) == (2, 2 * PAL, chip_smoke.WIDTH)
     assert dec.use_kernel is False and dec.tables.synd_table.device.type \
         == "cpu"
+
+
+def test_entry_points_default_to_the_card(tmp_path):
+    """The port runs on the card unless the caller asks for the CPU:
+    BatchDecoder, V2DDriver, STC007Stitcher, decode_to_numpy and the
+    stitcher's and device_stitch's host-array helpers default to "cuda".
+    Constructing them allocates nothing on the device, so this runs
+    without a GPU."""
+    import inspect
+
+    from sdvpcmdecoder_tpu_torch.ops import device_stitch as tds
+    from sdvpcmdecoder_tpu_torch.pipeline import decoder as tdec
+    from sdvpcmdecoder_tpu_torch.pipeline import v2d as tv2d
+    cap = capture(tmp_path, "c", 2)
+    j = tbd.BatchDecoder([(cap, str(tmp_path / "o.wav"))]).jobs[0]
+    assert j.driver.device.type == "cuda" and j.driver.use_kernel
+    assert j.stitcher.device.type == "cuda"
+    assert tv2d.V2DDriver().device.type == "cuda"
+    assert tst.STC007Stitcher().device.type == "cuda"
+    for fn in (tdec.decode_to_numpy, tst.eval_blocks, tst.eval_rows,
+               tst._eval_rows_tpu, tds.eval_rows_arrays, tds.seam_sweep):
+        assert inspect.signature(fn).parameters["device"].default \
+            == "cuda", fn.__name__

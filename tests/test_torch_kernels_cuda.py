@@ -41,7 +41,8 @@ def assert_batches_equal(got, expect):
     for name in got._fields:
         g, e = getattr(got, name), getattr(expect, name)
         assert g.dtype == e.dtype and g.shape == e.shape, name
-        assert torch.equal(g, e), name
+        bad = (g != e).reshape(g.shape[0], -1).any(-1).nonzero()
+        assert torch.equal(g, e), (name, len(bad), bad[:4].tolist())
 
 
 @pytest.mark.parametrize("n_frames,lines_pf,limits,per_line", [
@@ -49,6 +50,10 @@ def assert_batches_equal(got, expect):
     (2, 588, (10, 4), False),    # INSANE
     (2, 300, (4, 2), True),      # per-line levels, ragged last tile
     (1, 37, (2, 1), False),      # fewer lines than one tile
+    (16, 588, (4, 2), False),    # the round's shape
+    (64, 1, (4, 2), False),      # the marker fallback's batches
+    (2, 490, (4, 2), True),      # NTSC frames
+    (2, 100, (10, 4), True),     # n_h 11, n_s 5, per-line levels
 ])
 def test_binarize_kernel_matches_plain(cuda, n_frames, lines_pf, limits,
                                        per_line):
@@ -66,6 +71,87 @@ def test_binarize_kernel_matches_plain(cuda, n_frames, lines_pf, limits,
     assert fb.stc007_fused_decode_frames.launches == before + 1
     expect = bz.stc007_frame_decode(px, cd, ref, black, white, *limits)
     assert_batches_equal(got, expect)
+
+
+def reversed_coords(n_frames, seed, device):
+    """Coordinates with stop < start (negative pixels per bit: C's `/`
+    truncates where torch's `//` floors), some near the edges, as int64
+    [F, 2] on `device`."""
+    rng = np.random.default_rng(seed)
+    start = rng.integers(200, W + 40, n_frames)
+    stop = start - rng.integers(1, 900, n_frames)
+    stop[::3] = rng.integers(-300, 40, len(stop[::3]))
+    return torch.from_numpy(np.stack([start, stop], 1)).to(device)
+
+
+@pytest.mark.parametrize("dtype", [torch.int64, torch.int32])
+def test_binarize_kernel_reversed_coords(cuda, dtype):
+    """stop < start (and coordinates past both edges) on every field of
+    every line; int64 and int32 coordinates, given as a strided view."""
+    px, _ = noisy_frames(6, 64, 30.0, seed=9, device=cuda)
+    cd = reversed_coords(6, seed=10, device=cuda).to(dtype)
+    cd_view = torch.stack([cd, cd], 2)[..., 0]    # strides (4, 2)
+    assert not cd_view.is_contiguous()
+    gen = torch.Generator().manual_seed(4)
+    ref = torch.randint(60, 160, (6, 64), generator=gen,
+                        dtype=torch.int32).to(cuda)
+    black = torch.full((6, 64), 20, dtype=torch.int32, device=cuda)
+    white = torch.full((6,), 200, dtype=torch.int32, device=cuda)
+    white = white[:, None].expand(6, 64)          # line stride 0
+    got = fb.stc007_fused_decode_frames(px, cd_view, ref, black, white,
+                                        4, 2)
+    torch.cuda.synchronize()
+    expect = bz.stc007_frame_decode(px, cd, ref, black, white, 4, 2)
+    assert_batches_equal(got, expect)
+    cd0 = (int(cd[0, 0]), int(cd[0, 1]))
+    got = fb.stc007_fused_decode(px[0], cd0, ref[0], black[0], white[0],
+                                 4, 2)
+    expect = bz.stc007_frame_decode(px[:1], cd[:1], ref[:1], black[:1],
+                                    white[:1], 4, 2)
+    assert_batches_equal(got, bz.LineBatch(*(t[0] for t in expect)))
+
+
+@pytest.mark.parametrize("layout", ["width", "offset"])
+def test_binarize_kernel_plain_staging(cuda, layout):
+    """Rows the TMA cannot copy, staged by the kernel with plain loads:
+    a width that is not a multiple of 16 bytes, or pixels 1 byte past a
+    16-byte boundary. Both wrappers, on every field of every line."""
+    import chip_smoke
+    px, cd = noisy_frames(3, 100, 30.0, seed=12, device=cuda)
+    x = list(chip_smoke.plain_staged(px).values())[layout == "offset"]
+    gen = torch.Generator().manual_seed(5)
+    ref = torch.randint(100, 121, (3, 100), generator=gen,
+                        dtype=torch.int32).to(cuda)
+    black = torch.full((3, 100), 20, dtype=torch.int32, device=cuda)
+    white = torch.full((3, 100), 200, dtype=torch.int32, device=cuda)
+    got = fb.stc007_fused_decode_frames(x, cd, ref, black, white, 10, 4)
+    torch.cuda.synchronize()
+    expect = bz.stc007_frame_decode(x, cd, ref, black, white, 10, 4)
+    assert_batches_equal(got, expect)
+    got = fb.stc007_fused_decode(x[1], (int(cd[1, 0]), int(cd[1, 1])),
+                                 ref[1], black[1], white[1], 4, 2)
+    expect = bz.stc007_frame_decode(x[1:2], cd[1:2], ref[1:2], black[1:2],
+                                    white[1:2], 4, 2)
+    assert_batches_equal(got, bz.LineBatch(*(t[0] for t in expect)))
+
+
+def test_wrappers_launch_one_kernel_and_copy_nothing(cuda):
+    """On CUDA tensors each wrapper call is one kernel launch and no
+    host-to-device copy (torch.profiler's CUDA rows of one call)."""
+    import chip_smoke
+    px, cd = noisy_frames(16, 588, 10.0, seed=11, device=cuda)
+    lv = [torch.full((16,), v, dtype=torch.int32, device=cuda)
+          for v in (110, 20, 200)]
+    glv = [t[0].expand(588) for t in lv]
+    coords = (int(cd[0, 0]), int(cd[0, 1]))
+    calls = {
+        "frames": lambda: fb.stc007_fused_decode_frames(px, cd, *lv),
+        "group": lambda: fb.stc007_fused_decode(px[0], coords, *glv)}
+    for name, fn in calls.items():
+        rows = chip_smoke.cuda_rows(fn)
+        assert rows["kernels"] == ["stc007_binarize_frames_kernel"], \
+            (name, rows)
+        assert rows["copies"] == [], (name, rows)
 
 
 @pytest.mark.parametrize("lines,limits", [

@@ -78,6 +78,8 @@ def _run(st, inputs, kw, backend):
             tag.frame_number[0] = fn[0]
             s = st.LineStore.concat([tag, s])
         stores.append(s)
+    if st is tst:
+        kw = dict(kw, device="cpu")
     s = st.STC007Stitcher(
         seam_backend="tpu" if backend == "tpu" else "auto", **kw)
     s.push_frames(stores[:3])
