@@ -18,9 +18,16 @@ round (steady_round_packed), 4 chained rounds of 16 frames on a staged
 the chip-resident driver (DeviceBatchDecoder), y4m captures in and WAVs
 out: two golden captures whose WAVs must hash as the JAX package's do,
 2 x 128 frames timed with K1 and with the plain binarize, and a noisy
-capture that takes the marker-fallback re-decode. Times the kernels, their
-plain versions, the chain, the round and the driver. Needs one NVIDIA
-GPU; from the repository root:
+capture that takes the marker-fallback re-decode. Then the reference-level
+sweep, K1 launched once per level against the plain sweep (every field at
+every level, 64 launches and no copy per call, both routes timed); the
+driver at the CLI's default quality (the prescan sweep and the sweep of
+failed lines) and at INSANE (the full sweep), kernel route against plain
+route; and the CLI (sdvpcmdecoder_tpu_torch.__main__) under every backend,
+its WAVs held to the hashes of the JAX package's CLI, once as a
+`python -m` subprocess. Times the kernels, their plain versions, the
+sweep, the chain, the round, the driver and the CLI. Needs one NVIDIA GPU;
+from the repository root:
 
     python3 chip_smoke.py
 
@@ -56,6 +63,10 @@ DRIVER_FRAMES = 128   # frames per capture of the timed driver run
 DRIVER_SEEDS = (1, 11)
 DRIVER_HBM = 64       # staging chunk: every capture crosses chunks
 NOISY_FRAMES = 32     # the noisy driver capture (sigma 26)
+SWEEP_FRAMES = 4      # sweep-vs-plain checks on noisy frames
+SWEEP_CAP_FRAMES = 16  # the capture whose failed lines take the NORMAL sweep
+SWEEP_CAP_SIGMA = 34.0
+SWEEP_LEVELS = np.arange(254, 1, -4, dtype=np.int32)   # V2DDriver's grid
 DEVICE = "cuda:0"
 NORMAL = (4, 2)       # (hyst_limit, shift_limit), __main__.py:238-240
 INSANE = (10, 4)
@@ -78,6 +89,23 @@ GOLDEN_SHA256 = {
     "pal": "d78d00beb3096964a5e05e16c581878b09549535cb25d6f151ba40f6bafa7b9f",
     "ntsc": "40f2e8b6582372cea5b3a40224ff326e3d4db0076971b27bab25c186269e35ed",
 }
+# sha256 of the WAV the JAX package's CLI writes,
+#     python -m sdvpcmdecoder_tpu cap.y4m -o out.wav --quality normal
+# under every --backend (native, tpu, device and auto write the same
+# bytes) and with --quality insane --backend tpu --batch 4 (the P/Q codes
+# repair what NORMAL leaves invalid, so both qualities end in one WAV),
+# for the golden PAL capture and for CLI_NOISY, a capture whose failed
+# lines take the level sweep; tests/test_torch_cli.py recomputes them from
+# the JAX package's CLI.
+CLI_NOISY = dict(n_frames=6, lpf=294, seed=4, noise=34.0)
+GOLDEN_CLI_SHA256 = {
+    "pal": GOLDEN_SHA256["pal"],
+    "noisy": "75a9cfe7dfdc282d973fb0950160b03d76791be0dbc28fb63b8f1ae0a6471c97",
+}
+CLI_GOLDEN_RUNS = (   # (quality, backend, extra arguments)
+    ("normal", "device", []), ("normal", "tpu", []),
+    ("normal", "native", []), ("normal", "auto", []),
+    ("insane", "tpu", ["--batch", "4"]))
 
 
 def write_capture(path, n_frames, lpf, seed, noise=0.0):
@@ -208,6 +236,71 @@ def compare_k2(tag, px, cd, levels, limits):
     return err
 
 
+def compare_sweep(tag, px, cd, black, white, limits):
+    """The level sweep through K1 against the plain sweep on the same
+    inputs: every field at every level, and pick_ref_sweep's picks of
+    both. Returns the max abs difference (0 when equal)."""
+    from sdvpcmdecoder_tpu_torch.ops import binarize as bz
+    from sdvpcmdecoder_tpu_torch.ops import fused_binarize as fb
+    levels = torch.from_numpy(SWEEP_LEVELS).to(px.device)
+    got = fb.stc007_ref_sweep_decode(px, cd, black, white, levels, *limits)
+    expect = bz.stc007_ref_sweep_decode(px, cd, black, white, levels,
+                                        *limits)
+    return sweeps_equal(tag, got, expect, px.shape[:2], black, white, limits)
+
+
+def sweeps_equal(tag, got, expect, shape, black, white, limits):
+    """compare_sweep's checks on the results `got` (K1 route) and `expect`
+    (plain route) of one sweep of F x L = `shape` lines."""
+    from sdvpcmdecoder_tpu_torch.ops import binarize as bz
+    torch.cuda.synchronize()
+    levels = torch.from_numpy(SWEEP_LEVELS).to(black.device)
+    R, (F, L) = len(SWEEP_LEVELS), shape
+    err = 0
+    for name, e in expect.items():
+        g = got[name]
+        check(g.dtype == e.dtype and g.shape == e.shape
+              and g.shape[:3] == (R, F, L),
+              f"sweep {tag}: {name} {g.dtype}{tuple(g.shape)} vs plain "
+              f"{e.dtype}{tuple(e.shape)}")
+        err = max(err, int((g.long() - e.long()).abs().max()))
+    picks = [bz.pick_ref_sweep(*(sw[k].reshape(R, F * L).cpu().numpy()
+                                 for k in ("valid", "crc", "hyst", "shift")))
+             for sw in (got, expect)]
+    check(all(np.array_equal(a, b) for a, b in zip(*picks)),
+          f"sweep {tag}: pick_ref_sweep differs between the routes")
+    lv = levels[:, None]
+    outside = ((lv <= black[None]) | (lv >= white[None]))[..., None] \
+        .expand(R, F, L)
+    check(not bool(got["valid"][outside].any()),
+          f"sweep {tag}: a level outside (black, white) read valid")
+    print(f"[sweep] {tag}: F={F} L={L} limits={limits} levels={R} "
+          f"({int(outside[:, :, 0].sum())} frame-levels outside (black, "
+          f"white), none valid) valid={int(got['valid'].sum())}/{R * F * L} "
+          f"lines picked={int((picks[0][0] >= 0).sum())}/{F * L} "
+          f"max_abs_err={err} (valid, crc, hyst, shift, words at every "
+          f"level; equal picks)")
+    check(err == 0, f"sweep {tag}: K1 route disagrees with the plain sweep")
+    return err
+
+
+def dim_lines(frame, rows, lo=5, hi=60):
+    """frame [L, W] u8 with lines `rows` rescaled from 20..200 to lo..hi
+    (lines too dim for the frame's reference level)."""
+    out = frame.float()
+    out[rows] = lo + (out[rows] - 20) * (hi - lo) / (200 - 20)
+    return out.round().clamp(0, 255).to(torch.uint8)
+
+
+def cli_run(argv):
+    """The port's CLI in this process: (exit code, wall seconds)."""
+    from sdvpcmdecoder_tpu_torch.__main__ import main as cli_main
+    t0 = time.perf_counter()
+    rc = cli_main(argv)
+    torch.cuda.synchronize()
+    return rc, time.perf_counter() - t0
+
+
 def round_params(cd, pred_mode, device):
     """The round's int32 parameter vector (ds.round_param_layout): coords,
     ref 110 / black 20 / white 200 per frame, every frame usable, no
@@ -303,13 +396,14 @@ def cuda_profile(fn, calls, done):
     """torch.profiler's CUDA rows (key_averages) over `calls` calls of fn,
     after one warm-up call. CUPTI now and then hands back a trace without
     some of the launches it saw; a trace for which done(rows) is false is
-    taken again, up to three times in all."""
+    taken again, up to five times in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()   # the tracer is up before a launch
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
@@ -321,24 +415,31 @@ def cuda_profile(fn, calls, done):
 
 
 def kernel_device_ms(fn, kernel_name, calls=5):
-    """Mean device time of one CUDA kernel per call of fn, from
-    torch.profiler's CUPTI trace of `calls` calls after one warm-up."""
+    """Mean device time of one launch of a CUDA kernel, from
+    torch.profiler's CUPTI trace of `calls` calls of fn (one launch each)
+    after one warm-up. A trace that still lacks some of the launches after
+    cuda_profile's retakes gives the mean over the launches it holds."""
     def kernel(rows):
         return [e for e in rows if kernel_name in e.key]
     rows = kernel(cuda_profile(
         fn, calls, lambda r: [e.count for e in kernel(r)] == [calls]))
-    check(len(rows) == 1 and rows[0].count == calls,
+    check(len(rows) == 1 and 0 < rows[0].count <= calls,
           f"profiler saw {[(e.key, e.count) for e in rows]} for "
-          f"{kernel_name}")
-    return rows[0].self_device_time_total / calls / 1e3
+          f"{kernel_name} in {calls} calls")
+    if rows[0].count < calls:
+        print(f"[profile] {kernel_name}: the trace holds {rows[0].count} of "
+              f"{calls} launches; mean over those")
+    return rows[0].self_device_time_total / rows[0].count / 1e3
 
 
-def cuda_rows(fn):
+def cuda_rows(fn, launches=1):
     """What one call of fn puts on the card, after one warm-up call: the
     kernel names and the memory copies/sets among torch.profiler's CUDA
-    rows, one entry per launch."""
+    rows, one entry per launch. A trace with fewer than `launches` rows is
+    taken again (cuda_profile)."""
     rows = {"kernels": [], "copies": []}
-    for e in cuda_profile(fn, 1, bool):
+    for e in cuda_profile(
+            fn, 1, lambda r: sum(e.count for e in r) >= launches):
         copy = "Memcpy" in e.key or "Memset" in e.key
         name = e.key if copy else e.key.removeprefix("void ") \
             .removeprefix("(anonymous namespace)::").split("(")[0]
@@ -828,9 +929,13 @@ def main():
                          294, seed=s) for s in DRIVER_SEEDS]
     noisy_cap = write_capture(os.path.join(tmp, "noisy.y4m"), NOISY_FRAMES,
                               294, seed=2, noise=26.0)
+    sweep_cap = write_capture(os.path.join(tmp, "sweep.y4m"),
+                              SWEEP_CAP_FRAMES, 294, seed=3,
+                              noise=SWEEP_CAP_SIGMA)
     print(f"[captures] golden PAL 12 and NTSC 10 frames, 2 x "
           f"{DRIVER_FRAMES} PAL frames (seeds {DRIVER_SEEDS}), noisy "
-          f"{NOISY_FRAMES} PAL frames sigma=26: written in "
+          f"{NOISY_FRAMES} PAL frames sigma=26 and {SWEEP_CAP_FRAMES} "
+          f"sigma={SWEEP_CAP_SIGMA}: written in "
           f"{time.perf_counter() - t0:.2f} s")
 
     # -- phase 11: golden WAVs, byte-identical to the JAX package's --------
@@ -923,6 +1028,272 @@ def main():
           f"{jn.stats.lines_total}; K1 launches {launches_noisy} = "
           f"{len(jn.round_chained)} rounds + {jn.driver.fallback_batches} "
           f"fallback re-decode batches; wall {wall_n} s")
+
+    # -- phase 14: the level sweep, K1 route against the plain route --------
+    errs_sweep = []
+    ns = SWEEP_FRAMES
+    spx, scd, _, _ = encode_frames(ROUND_FRAMES, 30.0, seed=9, device=dev)
+    dim_frame = dim_lines(px[0], [5, 11, 17] + list(range(100, 140)))[None]
+    i32 = lambda v, n: torch.full((n,), v, dtype=torch.int32, device=dev)
+    bucket = dim_frame[0, :64].reshape(64, 1, WIDTH).contiguous()
+    for mode, limits in (("NORMAL", NORMAL), ("INSANE", INSANE)):
+        errs_sweep.append(compare_sweep(
+            f"{mode} {ns} frames sigma=30", spx[:ns], scd[:ns], i32(20, ns),
+            i32(200, ns), limits))
+        errs_sweep.append(compare_sweep(
+            f"{mode} 1 frame, 43 lines dimmed to 5..60, black 8 white 150",
+            dim_frame, cd[:1], i32(8, 1), i32(150, 1), limits))
+        errs_sweep.append(compare_sweep(
+            f"{mode} bucket shape 64 x 1 line", bucket,
+            cd[:1].expand(64, 2).contiguous(), i32(20, 64), i32(200, 64),
+            limits))
+    lv_dev = torch.from_numpy(SWEEP_LEVELS).to(dev)
+    R = len(SWEEP_LEVELS)
+    nr = ROUND_FRAMES
+    bk16, wt16 = i32(20, nr), i32(200, nr)
+    # The launch count is the wrapper's own; the trace shows that nothing
+    # but K1 ran and nothing was copied (CUPTI has handed back traces of a
+    # sweep that lack a few of its 64 rows, three times in a row).
+    sweep_call = lambda: fb.stc007_ref_sweep_decode(
+        spx, scd, bk16, wt16, lv_dev, *NORMAL)
+    fb.stc007_fused_decode_frames.launches = 0
+    sweep_call()
+    counted = fb.stc007_fused_decode_frames.launches
+    rows = cuda_rows(sweep_call, launches=R)
+    sweep_trace = (len(rows["kernels"]), len(rows["copies"]))
+    print(f"[launch] stc007_ref_sweep_decode: one call launches K1 "
+          f"{counted} times (the wrapper's count); its trace holds "
+          f"{len(rows['kernels'])} kernel row(s) "
+          f"{sorted(set(rows['kernels']))} and {len(rows['copies'])} copies "
+          f"{rows['copies']} (torch.profiler CUDA rows)")
+    check(counted == R and 0 < len(rows["kernels"]) <= R
+          and set(rows["kernels"]) == {"stc007_binarize_frames_kernel"}
+          and not rows["copies"],
+          f"sweep: not {R} K1 launches and nothing else: counted "
+          f"{counted}, trace {rows}")
+    sweep_times = []
+    for mode, limits in (("NORMAL", NORMAL), ("INSANE", INSANE)):
+        last = {}   # the timed calls' results: the round's shape is held
+        # against the plain sweep too, at no further plain call
+
+        def k_call():
+            last["k1"] = fb.stc007_ref_sweep_decode(
+                spx, scd, bk16, wt16, lv_dev, *limits)
+
+        def p_call():
+            last["plain"] = bz.stc007_ref_sweep_decode(
+                spx, scd, bk16, wt16, lv_dev, *limits)
+        sk_ms, sp_ms = median_ms_abab(k_call, p_call, rounds=3)
+        torch.cuda.synchronize()
+        errs_sweep.append(sweeps_equal(
+            f"{mode} {nr} frames sigma=30 (the round's shape, as timed)",
+            last["k1"], last["plain"], (nr, PAL_LINES), bk16, wt16, limits))
+        last.clear()
+        host = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            k_call()
+            host.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+        sweep_times.append(dict(frames=nr, mode=f"{mode} sigma=30",
+                                levels=R, k1_route_ms=sk_ms,
+                                plain_route_ms=sp_ms,
+                                host_ms=statistics.median(host)))
+        print(f"[time] ref sweep {nr}x{PAL_LINES}x{WIDTH} {mode} sigma=30, "
+              f"{R} levels: K1 route {sk_ms} ms = {sk_ms / R} ms a level, "
+              f"plain route {sp_ms} ms (CUDA events, median of 3, "
+              f"alternating); K1 route host time {statistics.median(host)} "
+              f"ms a call (host clock, median of 5) on {card}")
+
+    # -- phase 14b: the streamed dispatch with per-line levels --------------
+    # (--per-line-agc): levels [F, L] go through K1 as per-frame ones do.
+    import dataclasses
+    from sdvpcmdecoder_tpu_torch.pipeline import v2d
+    agc_px = spx.cpu().numpy()
+    agc_res, agc_count = {}, {}
+    for use_kernel in (True, False):
+        drv = v2d.V2DDriver(hyst_limit=NORMAL[0], shift_limit=NORMAL[1],
+                            per_line_agc=True, device=dev,
+                            use_kernel=use_kernel)
+        check(drv.prepare_frames(agc_px[:1])["refs"].ndim == 2,
+              "per-line AGC: the prepared levels are not [F, L]")
+        fb.stc007_fused_decode_frames.launches = 0
+        agc_res[use_kernel] = drv.decode_frames(agc_px)
+        agc_count[use_kernel] = (fb.stc007_fused_decode_frames.launches,
+                                 drv.fallback_batches)
+    launches_agc, agc_fb = agc_count[True]
+    check(launches_agc == 1 + agc_fb and agc_count[False][0] == 0,
+          f"per-line AGC: K1 launches, fallback batches {agc_count}")
+    for f, (a, b) in enumerate(zip(agc_res[True], agc_res[False])):
+        check(a is not None and b is not None, f"per-line AGC: frame {f} "
+              f"not decoded")
+        for fld in dataclasses.fields(a):
+            x, y = getattr(a, fld.name), getattr(b, fld.name)
+            check(np.array_equal(x, y) and np.asarray(x).dtype
+                  == np.asarray(y).dtype,
+                  f"per-line AGC: frame {f} {fld.name} differs between the "
+                  f"K1 route and the plain route")
+    agc_valid = sum(int(r.valid.sum()) for r in agc_res[True])
+    print(f"[agc] V2DDriver(per_line_agc=True).decode_frames, {nr} PAL frames "
+          f"sigma=30 NORMAL, levels [F, L]: K1 route == plain route on every "
+          f"FrameDecodeResult field; lines valid {agc_valid}/"
+          f"{nr * PAL_LINES}; K1 launches {launches_agc} = 1 dispatch + "
+          f"{agc_fb} fallback batches (plain route: 0)")
+    del spx, dim_frame, bucket, agc_px, agc_res
+
+    # -- phase 15: the driver at the CLI's default quality ------------------
+    qkw = dict(dkw, ref_sweep_fallback=True, normal_sweep_prescan=True)
+    fb.stc007_fused_decode_frames.launches = 0
+    wq, decq, stage_q, wall_q = driver_run(big, tmp, "bigq", True, **qkw)
+    launches_default = fb.stc007_fused_decode_frames.launches
+    sweeps_q = sum(j.driver.sweep_calls for j in decq.jobs)
+    rounds_q = sum(len(j.round_chained) for j in decq.jobs)
+    fb_q = sum(j.driver.fallback_batches for j in decq.jobs)
+    check(launches_default == rounds_q + fb_q + R * sweeps_q,
+          f"default quality: K1 launched {launches_default} times for "
+          f"{rounds_q} rounds, {fb_q} fallback batches, {sweeps_q} sweeps")
+    for j in decq.jobs:
+        check(j.stats.lines_valid == j.stats.lines_total
+              == DRIVER_FRAMES * PAL_LINES, "default quality: invalid lines")
+    stq = {k: round(decq.stage_t[k], 4) for k in (
+        "dispatch", "prescan", "materialize", "finalize", "assemble",
+        "stitch", "audio", "wav")}
+    print(f"[driver] default quality (NORMAL + prescan sweep + sweep "
+          f"fallback), {len(big)} x {DRIVER_FRAMES} PAL frames: decode wall "
+          f"{wall_q} s = {n_fr / wall_q} frames/s (phase 12, no sweeps: "
+          f"{n_fr / wall_k} frames/s); WAVs equal phase 12's: {wq == wk}; "
+          f"sweeps on the card {sweeps_q}; K1 launches {launches_default}; "
+          f"stage_t {stq} on {card}")
+    fb.stc007_fused_decode_frames.launches = 0
+    skw = dict(qkw, hbm_frames=SWEEP_CAP_FRAMES)
+    ws, decs, _, wall_s = driver_run([sweep_cap], tmp, "sweep1", True, **skw)
+    launches_sweepcap = fb.stc007_fused_decode_frames.launches
+    wsp, decsp, _, wall_sp = driver_run([sweep_cap], tmp, "sweep0", False,
+                                        **skw)
+    js = decs.jobs[0]
+    sweeps_k = js.driver.sweep_calls
+    check(ws == wsp, "sweep capture: the kernel route's WAV differs from "
+          "the plain route's")
+    check(sweeps_k > 0 and sweeps_k == decsp.jobs[0].driver.sweep_calls,
+          f"sweep capture: {sweeps_k} sweeps on the K1 route, "
+          f"{decsp.jobs[0].driver.sweep_calls} on the plain route")
+    check(launches_sweepcap == len(js.round_chained)
+          + js.driver.fallback_batches + R * sweeps_k,
+          f"sweep capture: {launches_sweepcap} K1 launches")
+    print(f"[driver] default quality on {SWEEP_CAP_FRAMES} PAL frames "
+          f"sigma={SWEEP_CAP_SIGMA}: kernel and plain WAVs byte-equal; "
+          f"lines valid {js.stats.lines_valid}/{js.stats.lines_total}; "
+          f"sweeps {sweeps_k} (x {R} levels), K1 launches "
+          f"{launches_sweepcap} = {len(js.round_chained)} rounds + "
+          f"{js.driver.fallback_batches} fallback batches + {R * sweeps_k}; "
+          f"wall kernel {wall_s} s (finalize "
+          f"{decs.stage_t['finalize']:.4f} s), plain {wall_sp} s (finalize "
+          f"{decsp.stage_t['finalize']:.4f} s) on {card}")
+
+    # -- phase 16: INSANE (the full sweep on every frame) --------------------
+    ikw = dict(lines_per_field=294, hyst_limit=INSANE[0],
+               shift_limit=INSANE[1], frames_per_round=ROUND_FRAMES,
+               ref_sweep=True, normal_sweep_prescan=True)
+    fb.stc007_fused_decode_frames.launches = 0
+    wi, deci, _, wall_i = driver_run([noisy_cap], tmp, "insane1", True,
+                                     **ikw)
+    launches_insane = fb.stc007_fused_decode_frames.launches
+    wip, decip, _, wall_ip = driver_run([noisy_cap], tmp, "insane0", False,
+                                        **ikw)
+    ji = deci.jobs[0]
+    check(wi == wip, "INSANE: the kernel route's WAV differs from the plain "
+          "route's")
+    check(ji.driver.sweep_calls >= len(ji.round_chained)
+          and launches_insane == len(ji.round_chained)
+          + ji.driver.fallback_batches + R * ji.driver.sweep_calls,
+          f"INSANE: {launches_insane} K1 launches, {ji.driver.sweep_calls} "
+          f"sweeps, {len(ji.round_chained)} rounds")
+    print(f"[insane] {NOISY_FRAMES} PAL frames sigma=26, ref_sweep: kernel "
+          f"and plain WAVs byte-equal; lines valid {ji.stats.lines_valid}/"
+          f"{ji.stats.lines_total}; sweeps {ji.driver.sweep_calls}; K1 "
+          f"launches {launches_insane}; wall kernel route {wall_i} s "
+          f"(finalize {deci.stage_t['finalize']:.4f} s), plain route "
+          f"{wall_ip} s (finalize {decip.stage_t['finalize']:.4f} s) on "
+          f"{card}")
+
+    # -- phase 17: the CLI ----------------------------------------------------
+    fb.stc007_fused_decode_frames.launches = 0
+    cli_caps = {"pal": golden["pal"],
+                "noisy": write_capture(os.path.join(tmp, "cli_noisy.y4m"),
+                                       **CLI_NOISY)}
+    cli_k1 = lambda: fb.stc007_fused_decode_frames.launches
+    for name, cap in cli_caps.items():
+        for quality, backend, extra in CLI_GOLDEN_RUNS:
+            out = os.path.join(tmp, f"cli_{name}_{quality}_{backend}.wav")
+            n0 = cli_k1()
+            rc, secs = cli_run([cap, "-o", out, "--quality", quality,
+                                "--backend", backend] + extra)
+            check(rc == 0, f"CLI {name} {quality}/{backend}: exit {rc}")
+            # Every backend but the explicit native one runs the trial
+            # grid on the card: auto is the card's route on --device cuda.
+            check(backend == "native" or cli_k1() > n0,
+                  f"CLI {name} {quality}/{backend}: no K1 launch")
+            digest = hashlib.sha256(open(out, "rb").read()).hexdigest()
+            check(digest == GOLDEN_CLI_SHA256[name],
+                  f"CLI {name} {quality}/{backend}: WAV sha256 {digest} is "
+                  f"not the JAX CLI's {GOLDEN_CLI_SHA256[name]}")
+            print(f"[cli] {name} capture --quality {quality} --backend "
+                  f"{backend}: WAV sha256 equals the JAX CLI's "
+                  f"({secs:.2f} s, {cli_k1() - n0} K1 launches)")
+    cli_fps, cli_big_k1 = {}, {}
+    for backend in ("device", "tpu", "native", None):
+        tag = backend or "default"
+        out = os.path.join(tmp, f"cli_big_{tag}.wav")
+        n0 = cli_k1()
+        rc, secs = cli_run([big[0], "-o", out]
+                           + (["--backend", backend] if backend else []))
+        check(rc == 0, f"CLI big/{tag}: exit code {rc}")
+        cli_fps[tag] = DRIVER_FRAMES / secs
+        cli_big_k1[tag] = cli_k1() - n0
+        check(open(out, "rb").read() == wq[0],
+              f"CLI big/{tag}: WAV differs from the driver's at the "
+              f"same quality")
+    # With no --backend and no --device the grid of every batch is a K1
+    # launch; only the explicit native backend keeps it on the host.
+    check(cli_big_k1["default"] == cli_big_k1["tpu"]
+          >= DRIVER_FRAMES // ROUND_FRAMES and cli_big_k1["native"] == 0,
+          f"CLI: K1 launches per backend on the clean capture {cli_big_k1}")
+    agc_wavs = {}
+    for backend in ("auto", "native"):
+        out = os.path.join(tmp, f"cli_agc_{backend}.wav")
+        n0 = cli_k1()
+        rc, _ = cli_run([cli_caps["noisy"], "-o", out, "--per-line-agc",
+                         "--backend", backend])
+        check(rc == 0, f"CLI --per-line-agc/{backend}: exit code {rc}")
+        check(backend == "native" or cli_k1() > n0,
+              "CLI --per-line-agc: no K1 launch for the per-line grid")
+        agc_wavs[backend] = open(out, "rb").read()
+    check(agc_wavs["auto"] == agc_wavs["native"] and len(agc_wavs["auto"])
+          > 2000, "CLI --per-line-agc: the card's WAV differs from the "
+          "native backend's")
+    print("[cli] --per-line-agc on the sigma=34 capture: --backend auto (K1 "
+          "on levels [F, L]) and --backend native write the same WAV")
+    print(f"[cli] {DRIVER_FRAMES} PAL frames at the defaults (--quality "
+          f"normal, --batch 16), WAVs equal phase 15's: "
+          + ", ".join(f"--backend {b} {f} frames/s ({cli_big_k1[b]} K1 "
+                      f"launches)" for b, f in cli_fps.items())
+          + f" (wall of main(), capture open to WAV close) on {card}")
+    launches_cli = fb.stc007_fused_decode_frames.launches
+    check(launches_cli > 0, "the CLI launched no K1 kernel")
+    out = os.path.join(tmp, "cli_module.wav")
+    proc = subprocess.run(
+        [sys.executable, "-m", "sdvpcmdecoder_tpu_torch", golden["pal"],
+         "-o", out, "--backend", "device"],
+        cwd=str(Path(__file__).resolve().parent), capture_output=True,
+        text=True, timeout=300)
+    check(proc.returncode == 0, f"python -m sdvpcmdecoder_tpu_torch: exit "
+          f"{proc.returncode}: {proc.stderr[-2000:]}")
+    digest = hashlib.sha256(open(out, "rb").read()).hexdigest()
+    check(digest == GOLDEN_CLI_SHA256["pal"],
+          "python -m sdvpcmdecoder_tpu_torch: WAV differs from the JAX CLI's")
+    print(f"[cli] python -m sdvpcmdecoder_tpu_torch pal.y4m --backend device "
+          f"(a subprocess): WAV sha256 equals the JAX CLI's; it printed: "
+          f"{proc.stdout.strip().splitlines()[-1]}")
     tmpdir.cleanup()
     check(tree_digest(sn.NATIVE_SRC) == native_before,
           "sdvpcmdecoder_tpu/native/ changed during the run")
@@ -932,7 +1303,12 @@ def main():
                    "steady_round_packed": launches_round,
                    "driver_golden": launches_golden,
                    "driver_full_width": launches_driver,
-                   "driver_noisy": launches_noisy}
+                   "driver_noisy": launches_noisy,
+                   "driver_default_quality": launches_default,
+                   "driver_sweep_fallback": launches_sweepcap,
+                   "driver_insane": launches_insane,
+                   "v2d_per_line_agc": launches_agc,
+                   "cli": launches_cli}
     # ms: the kernel's device time at the main path's shape (the round's
     # 16 x 588 x 1152, NORMAL); the other shapes and modes in "timings".
     # No single PyTorch call computes the trial grid: library_ms is null.
@@ -943,7 +1319,13 @@ def main():
              bound_by=k_main["bound_by"], library_ms=None,
              bound_share=k_main["bound_share"],
              wrapper_ms=k_main["wrapper_ms"], launches_by_path=launches_k1,
-             timings=k1_times),
+             timings=k1_times, sweep_max_abs_err=max(errs_sweep),
+             sweep_timings=sweep_times,
+             # launches and launches_by_path are the wrapper's counter;
+             # the profiler's trace of one sweep call is beside it.
+             sweep_call=dict(launches_counted=counted,
+                             trace_kernel_rows=sweep_trace[0],
+                             trace_copies=sweep_trace[1])),
         dict(KERNEL2, launches=launches2, max_abs_err=max(errs2),
              ms=k2_ms, plain_ms=k2p_ms, bound_ms=k2_bound, bound_by=k2_by,
              library_ms=None, bound_share=k2_bound / k2_ms,

@@ -237,6 +237,54 @@ def stc007_read_pcm_grid(pixel_lines, coords, ref_level, black, white,
     )
 
 
+def _frame_samples(pixels, coords, n_s):
+    """Pixel samples at every bit centre of every shift stage:
+    [F, S, L, 128] uint8 (they do not depend on the levels)."""
+    F, L, W = pixels.shape
+    pc = stc007_frame_bit_coords(coords, n_s, W).long()      # [F, S, 128]
+    return torch.stack([
+        torch.gather(pixels, 2, pc[:, s, None, :].expand(F, L, -1))
+        for s in range(n_s)], dim=1)
+
+
+def _trial_grid(px, ref_level, black, white, n_h, n_s, synd_table):
+    """The (hyst, shift) trial grid on samples px [F, S, L, 128] at the
+    levels ref/black/white ([F] or [F, L]): the bits [F, L, 128] of the
+    lexicographically first valid trial of every line (trial (0, 0) where
+    none is valid), its index pick [F, L] (0 there) and any_valid [F, L]."""
+    F, _, L, _ = px.shape
+    # Levels broadcast against [F, S, L]: per frame or per line.
+    if ref_level.dim() == 2:
+        lvl = lambda t: t[:, None, :]
+    else:
+        lvl = lambda t: t[:, None, None]
+    T = n_h * n_s
+    pick = torch.full((F, L), T, dtype=torch.int32, device=px.device)
+    chosen = None
+    for h in range(n_h):
+        rl = torch.clamp(ref_level - h, min=1)
+        rh = torch.clamp(ref_level + h, max=254)
+        read_ok = lvl((rl > black) & (rh < white))
+        bits = hysteresis_read(px, lvl(rl), lvl(rh))         # [F,S,L,128]
+        valid = (_syndrome(bits, synd_table) == 0) & read_ok  # [F,S,L]
+        if h == 0:
+            chosen = bits[:, 0]
+        for s in range(n_s):
+            take = valid[:, s] & (pick == T)
+            pick = torch.where(take, h * n_s + s, pick)
+            chosen = torch.where(take[..., None], bits[:, s], chosen)
+    any_valid = pick < T
+    return chosen, torch.where(any_valid, pick, 0), any_valid
+
+
+def _pack_words(chosen, pack_weights):
+    """[..., 128] bits -> ([..., 8] int32 words, [...] int32 read CRC)."""
+    words16 = torch.stack(
+        [(chosen * pack_weights[:, c]).sum(-1, dtype=torch.int32)
+         for c in range(stc007.N_WORDS + 1)], dim=-1)        # [..., 9]
+    return words16[..., :stc007.N_WORDS], words16[..., stc007.WORD_CRCC]
+
+
 def stc007_frame_decode(pixels, coords, ref_level, black, white,
                         hyst_limit=HYST_DEPTH_MAX,
                         shift_limit=SHIFT_STAGES_MAX, *,
@@ -251,45 +299,64 @@ def stc007_frame_decode(pixels, coords, ref_level, black, white,
     Returns a LineBatch with leading shape [F, L]. Lines with no valid
     trial carry the words, read CRC, hyst and shift of trial (0, 0).
     """
-    F, L, W = pixels.shape
     n_h, n_s = hyst_limit + 1, shift_limit + 1
     device = pixels.device
     synd_table = _table(synd_table, _syndrome_const()[0], device)
     pack_weights = _table(pack_weights, _pack_weights(), device)
-    pc = stc007_frame_bit_coords(coords, n_s, W).long()      # [F, S, 128]
-    px = torch.stack([
-        torch.gather(pixels, 2, pc[:, s, None, :].expand(F, L, -1))
-        for s in range(n_s)], dim=1)                         # [F,S,L,128] u8
-    # Levels broadcast against [F, S, L]: per frame or per line.
-    if ref_level.dim() == 2:
-        lvl = lambda t: t[:, None, :]
-    else:
-        lvl = lambda t: t[:, None, None]
-    T = n_h * n_s
-    pick = torch.full((F, L), T, dtype=torch.int32, device=device)
-    chosen = fallback = None
-    for h in range(n_h):
-        rl = torch.clamp(ref_level - h, min=1)
-        rh = torch.clamp(ref_level + h, max=254)
-        read_ok = lvl((rl > black) & (rh < white))
-        bits = hysteresis_read(px, lvl(rl), lvl(rh))         # [F,S,L,128]
-        valid = (_syndrome(bits, synd_table) == 0) & read_ok  # [F,S,L]
-        if h == 0:
-            fallback = bits[:, 0]
-            chosen = fallback
-        for s in range(n_s):
-            take = valid[:, s] & (pick == T)
-            pick = torch.where(take, h * n_s + s, pick)
-            chosen = torch.where(take[..., None], bits[:, s], chosen)
-    any_valid = pick < T
-    pick = torch.where(any_valid, pick, 0)
-    words16 = torch.stack(
-        [(chosen * pack_weights[:, c]).sum(-1, dtype=torch.int32)
-         for c in range(stc007.N_WORDS + 1)], dim=-1)        # [F, L, 9]
-    words = words16[..., :stc007.N_WORDS]
-    return LineBatch(words=words, crc_read=words16[..., stc007.WORD_CRCC],
+    px = _frame_samples(pixels, coords, n_s)                 # [F,S,L,128] u8
+    chosen, pick, any_valid = _trial_grid(px, ref_level, black, white,
+                                          n_h, n_s, synd_table)
+    words, crc_read = _pack_words(chosen, pack_weights)
+    return LineBatch(words=words, crc_read=crc_read,
                      crc_calc=stc007.calc_crc(words), valid=any_valid,
                      hyst=pick // n_s, shift=pick % n_s)
+
+
+def stc007_ref_sweep_decode(pixels, coords, black, white, ref_levels,
+                            hyst_limit=HYST_DEPTH_MAX,
+                            shift_limit=SHIFT_STAGES_MAX):
+    """Full reference-level sweep, plain torch (sweepRefLevel
+    binarizer.cpp:3551 / calcRefLevelBySweep :3821).
+
+    The reference walks every brightness in [black+1, white-1] per line,
+    re-running its serial trial loops at each level.  Here the per-shift
+    pixel samples are computed ONCE (they don't depend on the reference
+    level), then a loop walks a shared ref-level grid, each step reducing
+    the (hyst, shift) grid to the lexicographically-first valid result
+    for that level — stc007_frame_decode's grid with that level for every
+    frame, the early-exit readPCMdata call inside the reference's sweep
+    loop.  Only one level's trial bits exist at a time.
+
+    pixels [F, L, W] uint8; coords [F, 2]; black/white [F];
+    ref_levels [R] int32 (descending, white -> black scan order).
+    Returns per-level tensors with leading axis R: valid (bool) and
+    crc/hyst/shift (int32) [R, F, L] and words (int32) [R, F, L, 8].
+    Levels outside a frame's (black, white) open interval are masked
+    invalid (they carry trial (0, 0)'s words), which realises the
+    per-line sweep span without dynamic shapes.
+    """
+    F, L, W = pixels.shape
+    n_h, n_s = hyst_limit + 1, shift_limit + 1
+    device = pixels.device
+    synd_table = _table(None, _syndrome_const()[0], device)
+    pack_weights = _table(None, _pack_weights(), device)
+    black = black.to(torch.int32)
+    white = white.to(torch.int32)
+    levels = torch.as_tensor(ref_levels, device=device).to(torch.int32)
+    R = levels.shape[0]
+    px = _frame_samples(pixels, coords, n_s)                 # [F,S,L,128] u8
+    valid = torch.empty((R, F, L), dtype=torch.bool, device=device)
+    crc, hyst, shift = (torch.empty((R, F, L), dtype=torch.int32,
+                                    device=device) for _ in range(3))
+    words = torch.empty((R, F, L, stc007.N_WORDS), dtype=torch.int32,
+                        device=device)
+    for r in range(R):
+        chosen, pick, valid[r] = _trial_grid(
+            px, levels[r].expand(F), black, white, n_h, n_s, synd_table)
+        words[r], crc[r] = _pack_words(chosen, pack_weights)
+        hyst[r] = pick // n_s
+        shift[r] = pick % n_s
+    return dict(valid=valid, crc=crc, hyst=hyst, shift=shift, words=words)
 
 
 def pick_center_ref_level(black, white, min_contrast=8, min_ref_lvl=1,

@@ -10,6 +10,8 @@ per-line levels and crc_calc are computed in the kernel, and nothing is
 copied between host and device. On a CPU tensor it runs the plain torch
 version, binarize.stc007_frame_decode. A kernel that fails to build or
 launch raises; there is no fallback to the plain version.
+`stc007_ref_sweep_decode` is the reference-level sweep on K1: one launch
+per level (the sweep is no kernel of its own in the JAX package either).
 """
 from __future__ import annotations
 
@@ -53,12 +55,26 @@ def _levels(t: torch.Tensor, F: int, L: int, device) -> torch.Tensor:
     return t.to(device=device, dtype=torch.int32)
 
 
+def _alloc_outputs(shape, device) -> bz.LineBatch:
+    """Uninitialised kernel outputs with leading shape `shape`."""
+    words = torch.empty(shape + (stc007.N_WORDS,), dtype=torch.int32,
+                        device=device)
+    crc_read, crc_calc, hyst, shift = (
+        torch.empty(shape, dtype=torch.int32, device=device)
+        for _ in range(4))
+    valid = torch.empty(shape, dtype=torch.bool, device=device)
+    return bz.LineBatch(words=words, crc_read=crc_read, crc_calc=crc_calc,
+                        valid=valid, hyst=hyst, shift=shift)
+
+
 def _launch(entry, pixels, args, hyst_limit, shift_limit, tile_lines,
-            synd_table):
+            synd_table, out=None):
     """Check the inputs of a CUDA call, allocate the outputs and launch the
     kernel once through the C entry point `entry` on pixels [F, L, W]
     (F == 1 for the group entry). `args` are the entry's coordinate and
-    level arguments; the caller holds the tensors they point into.
+    level arguments; the caller holds the tensors they point into. `out`
+    is a LineBatch of contiguous tensors of leading shape [F, L] to write
+    into (the sweep's slice of its [R, ...] outputs) instead of new ones.
     Returns a LineBatch with leading shape [F, L]."""
     device = pixels.device
     _check(pixels.dtype == torch.uint8 and pixels.dim() == 3,
@@ -78,13 +94,9 @@ def _launch(entry, pixels, args, hyst_limit, shift_limit, tile_lines,
         "synd_table must be int32 [128, 16] on the pixels' device")
     rows, synd_const, crc_const = _syndrome_args()
 
-    shape = (F, L)
-    words = torch.empty(shape + (stc007.N_WORDS,), dtype=torch.int32,
-                        device=device)
-    crc_read, crc_calc, hyst, shift = (
-        torch.empty(shape, dtype=torch.int32, device=device)
-        for _ in range(4))
-    valid = torch.empty(shape, dtype=torch.bool, device=device)
+    if out is None:
+        out = _alloc_outputs((F, L), device)
+    words, crc_read, crc_calc, valid, hyst, shift = out
 
     lib = _kernels.load("stc007_binarize")
     frame_args = () if entry == "stc007_binarize_group" else (F,)
@@ -99,8 +111,36 @@ def _launch(entry, pixels, args, hyst_limit, shift_limit, tile_lines,
             f"{entry} launch failed: CUDA error {rc} "
             f"({lib.stc007_error_string(rc).decode()}); F={F} L={L} W={W} "
             f"n_h={n_h} n_s={n_s} tile_lines={tile_lines}")
-    return bz.LineBatch(words=words, crc_read=crc_read, crc_calc=crc_calc,
-                        valid=valid, hyst=hyst, shift=shift)
+    return out
+
+
+def _launch_frames(pixels, coords, ref_level, black, white, hyst_limit,
+                   shift_limit, tile_lines, synd_table, out=None):
+    """One launch of K1 on CUDA pixels [F, L, W]; counts it."""
+    F, L, _ = pixels.shape
+    device = pixels.device
+    levels = [_levels(t, F, L, device) for t in (ref_level, black, white)]
+    args = [_ptr(coords), int(coords.dtype == torch.int64), *coords.stride()]
+    for t in levels:   # element (f, l) at f * stride(0) + l * line stride
+        args += [_ptr(t), t.stride(0), t.stride(1) if t.dim() == 2 else 0]
+    batch = _launch("stc007_binarize_frames", pixels, args, hyst_limit,
+                    shift_limit, tile_lines, synd_table, out)
+    stc007_fused_decode_frames.launches += 1
+    return batch
+
+
+def _frames_inputs(pixels, coords):
+    """Shape checks shared by K1's callers; coords on the pixels' device
+    as int32 or int64."""
+    _check(pixels.device.type == "cuda",
+           f"unsupported device {pixels.device}")
+    _check(pixels.dim() == 3, "pixels must be uint8 [F, L, W]")
+    _check(tuple(coords.shape) == (pixels.shape[0], 2),
+           "coords must be [F, 2]")
+    coords = coords.to(pixels.device)
+    if coords.dtype not in (torch.int32, torch.int64):
+        coords = coords.to(torch.int32)
+    return coords
 
 
 def stc007_fused_decode_frames(pixels, coords, ref_level, black, white,
@@ -120,23 +160,49 @@ def stc007_fused_decode_frames(pixels, coords, ref_level, black, white,
         return bz.stc007_frame_decode(
             pixels, coords, ref_level, black, white, hyst_limit,
             shift_limit, synd_table=synd_table, pack_weights=pack_weights)
-    _check(pixels.device.type == "cuda",
-           f"unsupported device {pixels.device}")
-    _check(pixels.dim() == 3, "pixels must be uint8 [F, L, W]")
+    coords = _frames_inputs(pixels, coords)
+    return _launch_frames(pixels, coords, ref_level, black, white,
+                          hyst_limit, shift_limit, tile_lines, synd_table)
+
+
+def stc007_ref_sweep_decode(pixels, coords, black, white, ref_levels,
+                            hyst_limit=bz.HYST_DEPTH_MAX,
+                            shift_limit=bz.SHIFT_STAGES_MAX,
+                            tile_lines=DEFAULT_TILE_LINES):
+    """Reference-level sweep through K1: one launch per level, each with
+    that level as every frame's reference (a stride-0 view of the level
+    tensor), written into slice r of the [R, ...] outputs. Nothing is
+    copied between host and device and nothing synchronizes when the
+    arguments are tensors on the pixels' device (ref_levels given as a
+    host array is uploaded once, before the first launch).
+
+    Arguments and result as binarize.stc007_ref_sweep_decode, the plain
+    version, which runs for a CPU tensor.
+    """
+    if pixels.device.type == "cpu":
+        return bz.stc007_ref_sweep_decode(pixels, coords, black, white,
+                                          ref_levels, hyst_limit,
+                                          shift_limit)
+    coords = _frames_inputs(pixels, coords)
     F, L, _ = pixels.shape
     device = pixels.device
-    _check(tuple(coords.shape) == (F, 2), "coords must be [F, 2]")
-    coords = coords.to(device)
-    if coords.dtype not in (torch.int32, torch.int64):
-        coords = coords.to(torch.int32)
-    levels = [_levels(t, F, L, device) for t in (ref_level, black, white)]
-    args = [_ptr(coords), int(coords.dtype == torch.int64), *coords.stride()]
-    for t in levels:   # element (f, l) at f * stride(0) + l * line stride
-        args += [_ptr(t), t.stride(0), t.stride(1) if t.dim() == 2 else 0]
-    batch = _launch("stc007_binarize_frames", pixels, args, hyst_limit,
-                    shift_limit, tile_lines, synd_table)
-    stc007_fused_decode_frames.launches += 1
-    return batch
+    levels = torch.as_tensor(ref_levels).to(device=device,
+                                            dtype=torch.int32)
+    _check(levels.dim() == 1, "ref_levels must be [R]")
+    _check(tuple(black.shape) == (F,) and tuple(white.shape) == (F,),
+           "black and white must be [F]")
+    black, white = (t.to(device=device, dtype=torch.int32)
+                    for t in (black, white))   # once, not per launch
+    R = levels.shape[0]
+    # K1 also writes crc_calc [R, F, L], which the sweep's result drops.
+    out = _alloc_outputs((R, F, L), device)
+    for r in range(R):
+        _launch_frames(
+            pixels, coords, levels[r].expand(F), black, white, hyst_limit,
+            shift_limit, tile_lines, None,
+            out=bz.LineBatch(*(t[r] for t in out)))
+    return dict(valid=out.valid, crc=out.crc_read, hyst=out.hyst,
+                shift=out.shift, words=out.words)
 
 
 def stc007_fused_decode(pixels, coords, ref_level, black, white,

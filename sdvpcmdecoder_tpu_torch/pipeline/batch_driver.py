@@ -3,17 +3,25 @@
 BASELINE config 5: "Batched multi-tape pipeline: 8 concurrent
 dropout-heavy captures, auto format/level search, streaming WAV out."
 
-Each capture owns its V2D driver, stitcher, audio chain and WAV writer.
+Design: the device decodes interleaved frame batches from all captures
+(one dispatch covers every capture's next frame chunk — the device never
+idles while hosts stitch); each capture owns its stitcher + audio chain +
+WAV writer, run on a thread pool since the host stitcher is the per-core
+bottleneck.
+
+Backends: "tpu" (the JAX package's name, kept) ships pixel batches to the
+driver's `device` for the all-trials grid decode; "native" decodes in
+place on the host with the bit-identical early-exit C++ grid, touching
+pixels straight off the capture mmap (no copies, no transfers).  "auto"
+is "tpu" on a CUDA device; for device="cpu" it picks native when the C++
+core is available (the JAX package's rule).  Level sweeps run on the
+device under every backend (V2DDriver.ref_sweep uses it either way).
 Per-stage wall time is accumulated in `stage_t`.
 
-Port of the parts of sdvpcmdecoder_tpu/pipeline/batch_driver.py that the
-chip-resident driver (pipeline/device_driver.DeviceBatchDecoder) inherits:
-CaptureJob, the STC-007 constructor, checkpoints, store assembly, the
-stitch/audio/WAV tail and the final drain.  The driver's `device` and
-`use_kernel` reach the V2D driver and the stitcher's device backend.  The
-streaming loops (run_native, run_tpu), with their backend choice and
-thread pool, wait for the streaming backend (ROADMAP Queue 1 item 4);
-fmt="auto", PCM-1 and PCM-16x0 for the PCM slice (item 6).
+Port of sdvpcmdecoder_tpu/pipeline/batch_driver.py for STC-007 (M2
+through mode_m2): fmt="auto", PCM-1 and PCM-16x0 wait for the PCM slice
+(ROADMAP Queue 1 item 6).  The driver's `device` and `use_kernel` reach
+the V2D driver and the stitcher's device backend.
 """
 from __future__ import annotations
 
@@ -21,14 +29,41 @@ import contextlib
 import dataclasses
 import time
 from collections import defaultdict
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from ..utils.stats import DecodeStats
 from . import audio as ap
 from . import ingest, v2d, wav
 from . import stitcher_stc007 as st
+
+
+def resolve_auto_backend(device) -> str:
+    """What backend "auto" names for the torch device `device`: "tpu" (the
+    batch grid on the card) when it is a CUDA device; on the CPU the
+    host's native grid when its C++ core is available, else "tpu"."""
+    from ..ops import stitch_native as sn
+    if torch.device(device).type == "cuda":
+        return "tpu"
+    return "native" if sn.available() else "tpu"
+
+
+class _InlineFuture:
+    def __init__(self, value=None):
+        self._value = value
+
+    def result(self):
+        return self._value
+
+
+class _InlineExecutor:
+    """Same-thread executor for single-core hosts."""
+
+    def submit(self, fn, *args, **kw):
+        return _InlineFuture(fn(*args, **kw))
 
 
 @dataclass
@@ -50,16 +85,16 @@ class CaptureJob:
 
 
 class BatchDecoder:
-    """Decode several STC-007 captures.
+    """Decode several STC-007 captures concurrently.
 
     The JAX package's fmt selects the decode family per run; here only
     "stc007" is ported (M2 through mode_m2)."""
 
     def __init__(self, jobs, lines_per_field=294, hyst_limit=2,
                  shift_limit=1, mask_mode=ap.DROP_INTER_LIN_WORD,
-                 frames_per_round=4, ref_sweep=False,
+                 frames_per_round=4, workers=None, ref_sweep=False,
                  ref_sweep_fallback=False, checkpoint=False,
-                 per_line_agc=False, fmt="stc007",
+                 backend="auto", per_line_agc=False, fmt="stc007",
                  normal_sweep_prescan=False, seam_backend="auto",
                  mode_m2=False, preset_video=None,
                  preset_order=None, preset_resolution=None,
@@ -72,6 +107,20 @@ class BatchDecoder:
                 f"fmt={fmt!r}: the format probe, PCM-1 and PCM-16x0 are not "
                 "ported yet (ROADMAP Queue 1 item 6)")
         self.fmt = fmt
+        if backend == "auto":
+            import os
+            backend = os.environ.get("SDV_BACKEND", "auto")
+        from ..ops import stitch_native as sn
+        if backend == "auto":
+            # On a CUDA device the trial grid runs on the card; the host's
+            # native grid is what "auto" means only for device="cpu" (and
+            # an explicit choice everywhere).
+            backend = resolve_auto_backend(device)
+        elif backend == "native" and not sn.available():
+            # Explicit native without the C++ core: degrade to the device
+            # backend instead of failing mid-decode.
+            backend = "tpu"
+        self.backend = backend
         self.stage_t = defaultdict(float)
         for j in self.jobs:
             j.reader = ingest.open_capture(j.path)
@@ -107,6 +156,13 @@ class BatchDecoder:
             j.audio = ap.AudioProcessor(mask_mode=mask_mode)
             if checkpoint:
                 self._try_resume(j)
+        import os
+        n_workers = workers or min(8, len(self.jobs))
+        if n_workers <= 1 or (os.cpu_count() or 1) <= 1:
+            # Single host core: the pool only adds GIL churn.
+            self.pool = _InlineExecutor()
+        else:
+            self.pool = ThreadPoolExecutor(n_workers)
 
     @contextlib.contextmanager
     def _stage(self, name):
@@ -211,10 +267,175 @@ class BatchDecoder:
         return stores
 
     def run(self):
-        raise NotImplementedError(
-            "the streaming BatchDecoder loops (run_native, run_tpu) are not "
-            "ported yet (ROADMAP Queue 1 item 4); use "
-            "device_driver.DeviceBatchDecoder")
+        if self.backend == "native":
+            return self.run_native()
+        return self.run_tpu()
+
+    def step_native(self):
+        """One host-backend round over all live jobs; returns True while
+        any job made progress (separate from run_native so tests can
+        kill between rounds)."""
+        progressed = False
+        for j in self.jobs:
+            if j.done:
+                continue
+            if not j.eof:
+                with self._stage("read"):
+                    batch = j.reader.read_frames_view(
+                        j.frames_read, self.frames_per_round)
+                    if batch.shape[0] and batch.shape[2] < \
+                            ingest.MIN_WIDTH_FOR_SINGLE:
+                        # narrow capture: width-doubling needs the
+                        # copying field splitter
+                        lines_b, nums = ingest.split_fields_batch(
+                            np.ascontiguousarray(batch))
+                        perm = None
+                    else:
+                        perm, nums = ingest.field_perm(batch.shape[1])
+                        lines_b = batch
+                if batch.shape[0] == 0:
+                    j.eof = True
+                else:
+                    progressed = True
+                    j.frames_read += batch.shape[0]
+                    with self._stage("prescan"):
+                        prep = j.driver.prepare_frames(lines_b, perm=perm)
+                    with self._stage("binarize"):
+                        results = j.driver.decode_prepared_host(
+                            lines_b, prep, perm=perm)
+                    with self._stage("assemble"):
+                        stores = self._build_stores_stc007(j, results, nums)
+                    self._stitch_and_write(j, stores)
+            if j.eof and not j.done:
+                self._stitch_and_write(j, [], finish=True)
+                self._drain_final(j)
+                j.done = True
+        return progressed or not all(j.done for j in self.jobs)
+
+    def run_native(self):
+        """Host-backend loop: zero-copy mmap views through the native
+        early-exit trial grid; no device round-trips on the fast path.
+        Captures still interleave round-robin so streaming WAV output
+        advances evenly across jobs."""
+        while self.step_native():
+            pass
+        return {j.path: j.stats for j in self.jobs}
+
+    def run_tpu(self):
+        """Round-robin with one round in flight: while the device chews
+        on round k+1's fused dispatch, the host stitches round k (the
+        software-pipelined analog of the reference's VIN/V2D queue pair,
+        config.h:76-77).
+
+        All live captures' frames are fused into ONE device dispatch per
+        round when their geometries match (prepare/dispatch/finalize
+        split of V2DDriver); per-capture prescan state and stitching
+        stay independent.
+        """
+        pending = None   # (round_work, fused_ctx)
+        while True:
+            round_work = self._read_round()
+            ctx = self._dispatch_round(round_work)
+            if pending is not None:
+                self._complete_round(*pending)
+            pending = (round_work, ctx) if round_work else None
+            if not round_work:
+                for j in self.jobs:
+                    if j.eof and not j.done:
+                        self._stitch_and_write(j, [], finish=True)
+                        self._drain_final(j)
+                        j.done = True
+                if all(j.done for j in self.jobs):
+                    break
+        return {j.path: j.stats for j in self.jobs}
+
+    def _read_round(self):
+        round_work = []   # (job, split, lines_b, prep)
+        for j in self.jobs:
+            if j.done or j.eof:
+                continue
+            with self._stage("read"):
+                batch = j.reader.read_frames(j.frames_read,
+                                             self.frames_per_round)
+                if batch.shape[0] == 0:
+                    j.eof = True
+                    continue
+                j.frames_read += batch.shape[0]
+                lines_b, nums = ingest.split_fields_batch(batch)
+            split = [(lines_b[f], nums) for f in range(batch.shape[0])]
+            with self._stage("prescan"):
+                prep = j.driver.prepare_frames(lines_b)
+            round_work.append((j, split, lines_b, prep))
+        return round_work
+
+    def _dispatch_round(self, round_work):
+        """Enqueue the round's device work; returns a context for
+        _complete_round (non-blocking)."""
+        if not round_work:
+            return None
+        t0 = time.perf_counter()
+        try:
+            return self._dispatch_round_inner(round_work)
+        finally:
+            self.stage_t["dispatch"] += time.perf_counter() - t0
+
+    def _dispatch_round_inner(self, round_work):
+        fused = len(round_work) > 1 and len(
+            {w[2].shape[1:] for w in round_work}) == 1
+        if fused:
+            px = np.concatenate([w[2] for w in round_work])
+            prep = {k: np.concatenate([w[3][k] for w in round_work])
+                    for k in ("coords", "refs", "blacks", "whites",
+                              "usable")}
+            drv0 = round_work[0][0].driver
+            dev = drv0.dispatch_frames_async(px, prep)
+            return ("fused", px, prep, dev)
+        devs = []
+        for (j, split, lines_b, jprep) in round_work:
+            if not jprep["usable"].any():
+                devs.append(None)
+            else:
+                devs.append(j.driver.dispatch_frames_async(lines_b, jprep))
+        return ("per_job", devs)
+
+    def _complete_round(self, round_work, ctx):
+        if ctx is None:
+            return
+        if ctx[0] == "fused":
+            _, px, prep, dev = ctx
+            drv0 = round_work[0][0].driver
+            with self._stage("materialize"):
+                dw, dc, dv, df = drv0.materialize_frames(px, prep, dev)
+            ofs = 0
+            per_job = []
+            with self._stage("finalize"):
+                for (j, split, lines_b, jprep) in round_work:
+                    n = lines_b.shape[0]
+                    per_job.append(j.driver.finalize_frames(
+                        lines_b, jprep, dw[ofs:ofs + n], dc[ofs:ofs + n],
+                        dv[ofs:ofs + n], df[ofs:ofs + n]))
+                    ofs += n
+        else:
+            per_job = []
+            for (j, split, lines_b, jprep), dev in zip(round_work, ctx[1]):
+                if dev is None:
+                    per_job.append([None] * lines_b.shape[0])
+                    continue
+                with self._stage("materialize"):
+                    w_, c_, v_, f_ = j.driver.materialize_frames(
+                        lines_b, jprep, dev)
+                with self._stage("finalize"):
+                    per_job.append(j.driver.finalize_frames(
+                        lines_b, jprep, w_, c_, v_, f_))
+        futures = []
+        for (j, split, lines_b, _), results in zip(round_work, per_job):
+            nums = split[0][1]
+            with self._stage("assemble"):
+                stores = self._build_stores_stc007(j, results, nums)
+            futures.append(self.pool.submit(self._stitch_and_write, j,
+                                            stores))
+        for f in futures:
+            f.result()
 
     def _drain_final(self, job):
         arrs = st.chunks_to_arrays(job.stitcher.pop_sample_chunks())

@@ -19,7 +19,7 @@ Port of sdvpcmdecoder_tpu/pipeline/device_driver.py:
 
 The JAX package's device plumbing maps as: device_put + block_until_ready
 -> an upload to `device` and a recorded event that _await_staging waits
-on; copy_to_host_async -> `_HostCopy`; the jitted prescan gather ->
+on; copy_to_host_async -> `HostCopy`; the jitted prescan gather ->
 `px[:, idx, :]` with idx on the device; jnp.take -> index_select; the
 round call -> `run_round` over `RoundState`, the state one round hands
 the next.  The PCM drivers (device_pcm) wait for the PCM slice.
@@ -37,7 +37,7 @@ import torch
 
 from ..formats import stc007
 from ..ops import device_stitch as ds
-from ..utils.host import host_call
+from ..utils.host import HostCopy, host_call
 from . import batch_driver, ingest, v2d
 from . import stitcher_stc007 as st
 
@@ -47,29 +47,6 @@ MDD = stc007.MIN_DEINT_DATA
 
 def _gather_sample(px, idx):
     return px[:, idx, :]
-
-
-class _HostCopy:
-    """A device->host copy in flight (the JAX package's
-    copy_to_host_async): on CUDA a non_blocking copy into pinned host
-    memory and the event recorded after it; `numpy()` waits for that
-    event only.  On the CPU it is the tensor itself."""
-
-    def __init__(self, t: torch.Tensor):
-        self._event = None
-        if t.device.type == "cuda":
-            self._host = torch.empty(t.shape, dtype=t.dtype,
-                                     pin_memory=True)
-            self._host.copy_(t, non_blocking=True)
-            self._event = torch.cuda.Event()
-            self._event.record(torch.cuda.current_stream(t.device))
-        else:
-            self._host = t
-
-    def numpy(self) -> np.ndarray:
-        if self._event is not None:
-            self._event.synchronize()
-        return self._host.numpy()
 
 
 class StagedDeviceDecoder(batch_driver.BatchDecoder):
@@ -379,7 +356,7 @@ class DeviceBatchDecoder(StagedDeviceDecoder):
                 idx = torch.as_tensor(v2d.prescan_rows(Ls),
                                       device=self.device)
                 s0 = _gather_sample(j.px_dev[:F0], idx)
-                j.next_sample = (0, _HostCopy(s0))
+                j.next_sample = (0, HostCopy(s0))
         self._await_staging()
 
     def _rows(self, F, lpf, n0, padI, padO, target, tff):
@@ -519,12 +496,12 @@ class DeviceBatchDecoder(StagedDeviceDecoder):
                 hyst_limit=self.hyst_limit, shift_limit=self.shift_limit,
                 use_kernel=self.use_kernel, chained=chained,
                 tables=self.tables)
-            out = _HostCopy(out)
+            out = HostCopy(out)
             prefetch = []
             if n_head:
-                prefetch.append((0, n_head, _HostCopy(wflat[:n_head * Ls])))
+                prefetch.append((0, n_head, HostCopy(wflat[:n_head * Ls])))
             if n_tail:
-                prefetch.append((F - n_tail, F, _HostCopy(
+                prefetch.append((F - n_tail, F, HostCopy(
                     wflat[(F - n_tail) * Ls:F * Ls])))
             j.prev_words = nxt_state.prev_words
             j.prev_ok8 = nxt_state.prev_ok8
@@ -549,7 +526,7 @@ class DeviceBatchDecoder(StagedDeviceDecoder):
             if nxt < chunk_end and search_next:
                 F2 = min(self.frames_per_round, chunk_end - nxt)
                 px2 = j.px_dev[nxt - j.chunk_base:nxt - j.chunk_base + F2]
-                j.next_sample = (nxt, _HostCopy(_gather_sample(px2, idx)))
+                j.next_sample = (nxt, HostCopy(_gather_sample(px2, idx)))
             else:
                 j.next_sample = None
 
@@ -631,9 +608,11 @@ class DeviceBatchDecoder(StagedDeviceDecoder):
         j.driver.note_feedback(bool((~valid[usable]).any())
                                if usable.any() else True)
         with self._stage("finalize"):
-            # INSANE quality (full ref-level sweep) would send every
-            # usable frame down the host finalize path; the port's
-            # V2DDriver refuses ref_sweep until the sweep is ported.
+            # INSANE quality (full ref-level sweep): every usable frame
+            # takes the host finalize path, whose _ref_sweep_merge runs
+            # the sweep grid on the device — --quality insane composes
+            # with the chip-resident driver instead of excluding it
+            # (sweepRefLevel scope, binarizer.cpp:3551).
             insane = getattr(j.driver, "ref_sweep", False)
             fb_frames = [f for f in range(F)
                          if usable[f]

@@ -16,22 +16,17 @@ decode:
     the reference, which walks line by line and skips work when previous
     parameters hold.
 
-Port of the parts of sdvpcmdecoder_tpu/pipeline/v2d.py that the
-chip-resident driver (pipeline/device_driver.py) runs: the prescan and
-its damping, duplicate-line detection, and the host finalize with the
-marker fallback, whose re-decode of failed lines runs on the driver's
-`device` (through the CUDA kernel's wrapper, fused_binarize, on a GPU).
-The level sweeps (ref_sweep, ref_sweep_fallback, and the NORMAL prescan
-sweep without the native core) wait for the port of
-binarize.stc007_ref_sweep_decode (ROADMAP Queue 1 item 5) and raise
-NotImplementedError.  The streaming dispatch (dispatch_frames_async,
-materialize_frames), the host backend (decode_frames_host,
-decode_prepared_host) and the single-frame decode_frames/decode_frame
-come with the streaming backend (Queue 1 item 4).
+Port of sdvpcmdecoder_tpu/pipeline/v2d.py.  Every array that reaches the
+binarizer goes to the driver's `device`; with `use_kernel` (the default
+on a GPU) the trial grid, the marker fallback's re-decode and the level
+sweeps run through the CUDA kernel's wrappers (ops/fused_binarize), else
+through the plain torch versions (ops/binarize).  The host backend
+(decode_frames_host) decodes in place with the native core.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -39,10 +34,7 @@ import torch
 from ..formats import stc007
 from ..ops import agc, binarize as bz, markers
 from ..ops import fused_binarize as fb
-from ..utils.host import host_call
-
-SWEEP_TODO = ("the ref-level sweep (binarize.stc007_ref_sweep_decode) is "
-              "not ported yet: ROADMAP Queue 1 item 5")
+from ..utils.host import HostCopy, host_call
 
 COORD_CHECK_LINES = 4     # videotodigital.h:98-105
 COORD_CHECK_PARTS = COORD_CHECK_LINES + 1
@@ -150,6 +142,23 @@ class FrameDecodeResult:
     forced_bad: np.ndarray | None = None  # [L] narrow ref-sweep span
 
 
+class _Sweep(NamedTuple):
+    """A level sweep over N lines: the per-level facts [R, N] on the host
+    and the words [R, N, 8] left on the device, where only the picked
+    level's words of a line are read."""
+    valid: np.ndarray
+    crc: np.ndarray
+    hyst: np.ndarray
+    shift: np.ndarray
+    words: torch.Tensor
+
+    def words_at(self, level_idx, rows) -> np.ndarray:
+        """words[level_idx[k], rows[k]] as a host array [K, 8]."""
+        dev = self.words.device
+        return self.words[torch.as_tensor(level_idx, device=dev),
+                          torch.as_tensor(rows, device=dev)].cpu().numpy()
+
+
 class V2DDriver:
     """STC-007 frame decoder with prescan + damping + fallback.
 
@@ -169,8 +178,6 @@ class V2DDriver:
                  per_line_agc=False, dup_detect=True, device="cuda",
                  use_kernel=None, m2=False, normal_sweep_prescan=False,
                  coord_skip=True):
-        if ref_sweep or ref_sweep_fallback:
-            raise NotImplementedError(SWEEP_TODO)
         self.hyst_limit = hyst_limit
         self.shift_limit = shift_limit
         self.preset = preset or agc.BinPreset()
@@ -181,13 +188,16 @@ class V2DDriver:
         self.per_line_agc = per_line_agc
         self.dup_detect = dup_detect  # check_line_copy (doBinarize :1210)
         self.m2 = m2  # M2 sample companding (almost-silent dup gate)
-        # The device of the marker-fallback re-decode, and whether it
-        # goes through the CUDA kernel's wrapper (fused_binarize, the
-        # default on a GPU) or the plain torch grid.
+        # The device of the trial grid, the marker-fallback re-decode
+        # and the level sweeps, and whether they go through the CUDA
+        # kernel's wrappers (fused_binarize, the default on a GPU) or the
+        # plain torch versions.
         self.device = torch.device(device)
         self.use_kernel = (self.device.type == "cuda" if use_kernel is None
                            else use_kernel)
         self.fallback_batches = 0   # re-decode calls of _marker_fallback
+        self.sweep_calls = 0        # level sweeps run on `device`
+        self._levels_dev = None     # the sweep's level grid on `device`
         self.ref_sweep = ref_sweep
         # NORMAL-mode analog of the reference's always-on STC-007 sweep:
         # only lines still invalid after the marker fallback re-run the
@@ -426,7 +436,8 @@ class V2DDriver:
             sv, sc = sw["valid"], sw["crc"]
             sh, ss = sw["hyst"], sw["shift"]
         else:
-            raise NotImplementedError(SWEEP_TODO)
+            sw = self._sweep_decode(px[:, None, :], cds, bk, wt)
+            sv, sc, sh, ss = sw.valid, sw.crc, sw.hyst, sw.shift
         pick, good, fbad = bz.pick_ref_sweep(
             sv, sc, sh, ss, min_valid_crcs=self.min_valid_crcs)
         pick_ref = np.where(pick >= 0, levels[np.maximum(pick, 0)], -1)
@@ -460,6 +471,133 @@ class V2DDriver:
         wht2 = np.where(good, wht, whites[:, None])
         ref2 = np.where(good, ref, refs[:, None])
         return ref2, blk2, wht2
+
+    def _grid(self):
+        """The frame trial grid: the CUDA kernel's wrapper or the plain
+        torch version."""
+        return fb.stc007_fused_decode_frames if self.use_kernel \
+            else bz.stc007_frame_decode
+
+    def _dev(self, a, dtype=torch.int32):
+        return torch.as_tensor(np.asarray(a), dtype=dtype,
+                               device=self.device)
+
+    def dispatch_frames_async(self, pixels, prep):
+        """Device phase, non-blocking: enqueue one batched trial-grid
+        dispatch and the copies of its result into pinned host memory
+        (the caller overlaps host work with device execution — the
+        VIN/V2D double-buffer analog, config.h:76-77).  words, crc_read
+        and valid of the returned batch are copies in flight
+        (utils.host.HostCopy), the other fields stay on the device.
+
+        Safe to call with a CONCATENATION of several drivers' prepared
+        batches — everything here is per-frame.
+        """
+        coords, blacks, whites = prep["coords"], prep["blacks"], \
+            prep["whites"]
+        # Per-frame [F] and per-line [F, L] levels (per_line_agc) alike go
+        # through K1 when use_kernel: the kernel reads them by strides.
+        px = torch.from_numpy(np.ascontiguousarray(pixels)).to(
+            self.device, non_blocking=True)
+        batch = self._grid()(
+            px, self._dev(coords),
+            self._dev(np.maximum(prep["refs"], 1)),
+            self._dev(np.clip(blacks, 0, 254)),
+            self._dev(np.clip(whites, 1, 255)),
+            hyst_limit=self.hyst_limit, shift_limit=self.shift_limit)
+        # Words are 14-bit, CRC 16-bit: cast AND flatten the minor axis
+        # on DEVICE before the copy out ([F, L*8] int16; the CRC's 16
+        # bits travel as int16 and are read as uint16 on the host).
+        F = batch.words.shape[0]
+        return batch._replace(
+            words=HostCopy(batch.words.to(torch.int16).reshape(F, -1)),
+            crc_read=HostCopy(batch.crc_read.to(torch.int16)),
+            valid=HostCopy(batch.valid))
+
+    def materialize_frames(self, pixels, prep, batch):
+        """Blocking device->host transfer of a dispatch + INSANE sweep."""
+        words = batch.words.numpy()
+        crc_read = batch.crc_read.numpy().view(np.uint16)
+        valid = batch.valid.numpy()
+        if words.ndim == 2:  # flattened [F, L*8] transfer layout
+            words = words.reshape(words.shape[0], -1, 8)
+        forced = np.zeros(valid.shape, bool)
+        if self.ref_sweep:
+            blacks, whites = prep["blacks"], prep["whites"]
+            if blacks.ndim == 2:  # per-line AGC: sweep uses frame medians
+                blacks = np.median(blacks, axis=1).astype(np.int64)
+                whites = np.median(whites, axis=1).astype(np.int64)
+            words, crc_read, valid, forced = self._ref_sweep_merge(
+                pixels, prep["coords"], blacks, whites,
+                words, crc_read, valid)
+        return words, crc_read, valid, forced
+
+    def dispatch_frames(self, pixels, prep):
+        """Device phase (blocking): dispatch + materialize."""
+        return self.materialize_frames(
+            pixels, prep, self.dispatch_frames_async(pixels, prep))
+
+    # -- host (native) backend --------------------------------------------
+    def decode_frames_host(self, pixels: np.ndarray, perm=None):
+        """Decode a frame batch on the HOST via the native early-exit
+        trial grid (stitch_native.binarize_frames — bit-identical to the
+        device grid).
+
+        `pixels` may be ANY strided uint8 view [F, L, W] — with `perm`
+        (field-sequential index -> pixel row) it is the raw frame-row
+        mmap view and no full-frame copy ever happens; results come back
+        in field-sequential line order.  The level sweeps of INSANE and
+        of the NORMAL fallback run on the driver's device either way.
+        """
+        prep = self.prepare_frames(pixels, perm=perm)
+        return self.decode_prepared_host(pixels, prep, perm=perm)
+
+    def decode_prepared_host(self, pixels, prep, perm=None):
+        """Native grid decode + fallbacks for an already-prepared batch
+        (prepare/decode split so drivers can time and interleave the
+        phases)."""
+        from ..ops import stitch_native as sn
+        F = pixels.shape[0]
+        if not prep["usable"].any():
+            return [None] * F
+        if not sn.available():
+            # No native core on this host: run the prepared batch through
+            # the device dispatch instead (field-ordered copy; per-line
+            # AGC rows ride along).
+            px = np.ascontiguousarray(pixels[:, perm, :]) \
+                if perm is not None else pixels
+            prep2 = prep
+            if perm is not None and np.asarray(prep["refs"]).ndim == 2:
+                prep2 = dict(prep, refs=prep["refs"][:, perm],
+                             blacks=prep["blacks"][:, perm],
+                             whites=prep["whites"][:, perm])
+            words, crc_read, valid, forced = self.dispatch_frames(px,
+                                                                  prep2)
+            return self.finalize_frames(px, prep2, words, crc_read,
+                                        valid, forced)
+        # perm rides into the native grid as an input row map: outputs
+        # arrive field-sequential straight off the raw capture view,
+        # with no post-hoc [:, perm] gathers of the whole round.
+        words, crc_read, valid, hyst, shift = sn.binarize_frames(
+            pixels, prep["coords"], np.maximum(prep["refs"], 1),
+            np.clip(prep["blacks"], 0, 254), np.clip(prep["whites"], 1, 255),
+            self.hyst_limit, self.shift_limit, row_map=perm)
+        forced = np.zeros(valid.shape, bool)
+        if self.ref_sweep:
+            # The INSANE sweep stays on the device (the full level sweep
+            # is the search the device is for); gather a field-ordered
+            # copy.
+            px_seq = np.ascontiguousarray(
+                pixels[:, perm, :]) if perm is not None else pixels
+            blacks, whites = prep["blacks"], prep["whites"]
+            if np.asarray(blacks).ndim == 2:
+                blacks = np.median(blacks, axis=1).astype(np.int64)
+                whites = np.median(whites, axis=1).astype(np.int64)
+            words, crc_read, valid, forced = self._ref_sweep_merge(
+                px_seq, prep["coords"], blacks, whites,
+                words, crc_read, valid)
+        return self.finalize_frames(pixels, prep, words, crc_read, valid,
+                                    forced, perm=perm, native=True)
 
     def finalize_frames(self, pixels, prep, words, crc_read, valid,
                         forced, perm=None, native=False):
@@ -509,22 +647,112 @@ class V2DDriver:
                                for r in out))
         return out
 
+    def _sweep_decode(self, pixels, coords, blacks, whites):
+        """One level sweep of host arrays pixels [F, L, W], coords
+        [F, 2], blacks/whites [F] on the driver's device: through K1
+        (one launch per level) when use_kernel, else the plain torch
+        sweep.  Returns a _Sweep over lines flattened to N = F * L."""
+        if self._levels_dev is None:
+            self._levels_dev = self._dev(
+                np.arange(254, 1, -self.sweep_step, dtype=np.int32))
+        sweep = fb.stc007_ref_sweep_decode if self.use_kernel \
+            else bz.stc007_ref_sweep_decode
+        px = torch.from_numpy(np.ascontiguousarray(pixels)).to(
+            self.device, non_blocking=True)
+        sw = sweep(px, self._dev(coords), self._dev(blacks),
+                   self._dev(whites), self._levels_dev,
+                   hyst_limit=self.hyst_limit,
+                   shift_limit=self.shift_limit)
+        self.sweep_calls += 1
+        R = self._levels_dev.shape[0]
+        N = px.shape[0] * px.shape[1]
+        copies = [HostCopy(sw[k].reshape(R, N))
+                  for k in ("valid", "crc", "hyst", "shift")]
+        return _Sweep(*(c.numpy() for c in copies),
+                      sw["words"].reshape(R, N, -1))
+
     def _sweep_failed_lines(self, pixels, coords, black, white, words,
                             crc_read, valid, forced, perm=None):
         """Per-line ref-level sweep for lines the fast path and marker
         fallback could not decode (NORMAL-mode sweep parity, bucketed
-        to a fixed shape so only one sweep shape ever compiles).  Not
-        ported yet."""
-        raise NotImplementedError(SWEEP_TODO)
+        to a fixed shape as in the JAX package)."""
+        bad = np.nonzero(~valid)[0]
+        if len(bad) == 0:
+            return words, crc_read, valid, forced
+        rows_of = (lambda r: np.asarray(perm)[r]) if perm is not None \
+            else (lambda r: r)
+        # AGC gate (processLine binarizer.cpp:1090-1101): lines whose
+        # histogram finds no valid black/white contrast never reach the
+        # sweep — dropped/blank lines must not burn 64-level sweeps.
+        _, _, agc_ok = agc.find_black_white(
+            np.ascontiguousarray(pixels[rows_of(bad)]), self.preset,
+            fmt="stc007")
+        bad = bad[agc_ok]
+        if len(bad) == 0:
+            return words, crc_read, valid, forced
+        B = self.FALLBACK_BUCKET
+        words = words.copy()
+        crc_read = crc_read.copy()
+        valid = valid.copy()
+        forced = forced.copy()
+        for base in range(0, len(bad), B):
+            grp = bad[base:base + B]
+            n = len(grp)
+            px = np.zeros((B, 1, pixels.shape[1]), np.uint8)
+            px[:n, 0] = pixels[rows_of(grp)]
+            sw = self._sweep_decode(
+                px, np.tile(np.asarray(coords)[None], (B, 1)),
+                np.full(B, max(black, 0)), np.full(B, min(white, 255)))
+            pick, good, fbad = bz.pick_ref_sweep(
+                sw.valid, sw.crc, sw.hyst, sw.shift,
+                min_valid_crcs=self.min_valid_crcs)
+            hit = np.nonzero(pick[:n] >= 0)[0]
+            rows = grp[hit]
+            words[rows] = sw.words_at(pick[hit], hit)
+            crc_read[rows] = sw.crc[pick[hit], hit]
+            valid[rows] = True
+            forced[rows] = fbad[hit]
+        return words, crc_read, valid, forced
+
+    def decode_frames(self, pixels: np.ndarray):
+        """Decode a BATCH of frames [F, L, W] in one device dispatch.
+
+        Per-frame prescan + damping run on host; the trial-grid decode for
+        all frames is a single call of the frame grid. Returns list of
+        FrameDecodeResult (None for frames with no PCM detected and no
+        history).
+        """
+        F = pixels.shape[0]
+        prep = self.prepare_frames(pixels)
+        if not prep["usable"].any():
+            return [None] * F
+        words, crc_read, valid, forced = self.dispatch_frames(pixels, prep)
+        return self.finalize_frames(pixels, prep, words, crc_read, valid,
+                                    forced)
 
     def _ref_sweep_merge(self, pixels, coords, blacks, whites,
                          words, crc_read, valid):
         """INSANE path: batched ref-level sweep + CRC-stats pick; the
         sweep result replaces the fast-path read for every line where
         any level produced a valid CRC (STG_REF_SWEEP_RUN replaces
-        STG_REF_FIND entirely in the reference, processLine :1130).  Not
-        ported yet."""
-        raise NotImplementedError(SWEEP_TODO)
+        STG_REF_FIND entirely in the reference, processLine :1130)."""
+        F, L, _ = pixels.shape
+        sw = self._sweep_decode(pixels, coords, np.clip(blacks, 0, 254),
+                                np.clip(whites, 1, 255))
+        pick, good, fbad = bz.pick_ref_sweep(
+            sw.valid, sw.crc, sw.hyst, sw.shift,
+            min_valid_crcs=self.min_valid_crcs)
+        rows = np.nonzero(pick >= 0)[0]
+        words = words.reshape(F * L, -1).copy()
+        crc_read = crc_read.reshape(F * L).copy()
+        valid = valid.reshape(F * L).copy()
+        forced = np.zeros(F * L, bool)
+        words[rows] = sw.words_at(pick[rows], rows)
+        crc_read[rows] = sw.crc[pick[rows], rows]
+        valid[rows] = True
+        forced[rows] = fbad[rows]
+        return (words.reshape(F, L, -1), crc_read.reshape(F, L),
+                valid.reshape(F, L), forced.reshape(F, L))
 
     FALLBACK_BUCKET = 64  # fixed shape so the retry path compiles once
 
@@ -574,8 +802,7 @@ class V2DDriver:
                 valid[rows] = True
             return words, crc_read, valid
         B = self.FALLBACK_BUCKET
-        decode = fb.stc007_fused_decode_frames if self.use_kernel \
-            else bz.stc007_frame_decode
+        decode = self._grid()
         dev = self.device
         for base in range(0, len(retry), B):
             grp = retry[base:base + B]
@@ -602,3 +829,57 @@ class V2DDriver:
             crc_read[rows] = w2.crc_read[:n, 0].cpu().numpy()[ok2]
             valid[rows] = True
         return words, crc_read, valid
+
+    # -- frame decode -----------------------------------------------------
+    def decode_frame(self, pixels: np.ndarray) -> FrameDecodeResult | None:
+        """pixels [L, W] uint8 (one frame, field-sequential order)."""
+        pre = self.prescan(pixels)
+        if pre is None:
+            if self.forced_coords is not None:
+                coords, ref, black, white = self.forced_coords, 127, 0, 255
+            elif self.state.coord_history:
+                hs = np.array(self.state.coord_history)
+                coords = (_imed(hs[:, 0]), _imed(hs[:, 1]))
+                ref = _imed(self.state.ref_history)
+                black, white = 0, 255
+            else:
+                return None
+        else:
+            (coords, ref, black, white) = pre
+            coords, ref = self._damped_coords((coords, ref))
+        if self.forced_coords is not None:
+            coords = tuple(self.forced_coords)
+        L, W = pixels.shape
+        batch = self._grid()(
+            torch.from_numpy(np.ascontiguousarray(pixels[None])).to(
+                self.device),
+            self._dev([[coords[0], coords[1]]]), self._dev([ref]),
+            self._dev([max(black, 0)]), self._dev([min(white, 255)]),
+            hyst_limit=self.hyst_limit, shift_limit=self.shift_limit)
+        words = batch.words[0].cpu().numpy()
+        crc_read = batch.crc_read[0].cpu().numpy()
+        valid = batch.valid[0].cpu().numpy()
+        forced = np.zeros(L, bool)
+        if self.ref_sweep:
+            w4, c4, v4, f4 = self._ref_sweep_merge(
+                pixels[None], np.asarray([[coords[0], coords[1]]]),
+                np.asarray([max(black, 0)]), np.asarray([min(white, 255)]),
+                words[None], crc_read[None], valid[None])
+            words, crc_read, valid, forced = w4[0], c4[0], v4[0], f4[0]
+
+        words, crc_read, valid = self._marker_fallback(
+            pixels, words, crc_read, valid, ref, black, white)
+        if self.ref_sweep_fallback and not self.ref_sweep \
+                and not valid.all():
+            words, crc_read, valid, forced = self._sweep_failed_lines(
+                pixels, coords, black, white, words, crc_read, valid,
+                forced)
+
+        dup = np.zeros(L, dtype=bool)
+        if self.dup_detect:
+            half = (L + 1) // 2
+            dup = find_duplicate_lines(words, crc_read, valid & ~forced,
+                                       [(0, half), (half, L)], m2=self.m2)
+            forced = forced | dup
+        return FrameDecodeResult(words, crc_read, valid, ref, black, white,
+                                 coords, dup, forced)

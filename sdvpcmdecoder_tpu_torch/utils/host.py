@@ -5,6 +5,8 @@ duplicate scan) calls its array functions with `xp=np`. The port has one
 torch implementation of each, so those call sites go through `host_call`:
 every numpy argument becomes a CPU tensor and every tensor result comes
 back as a numpy array, through tuples and NamedTuples both ways.
+`HostCopy` is the other direction's helper on a GPU: a device tensor on
+its way into pinned host memory.
 """
 from __future__ import annotations
 
@@ -35,3 +37,26 @@ def host_call(fn, *args, out_dtype=None, **kw):
         a = x.numpy()
         return a if out_dtype is None else a.astype(out_dtype, copy=False)
     return _map(fn(*(_map(a, _to_torch) for a in args), **kw), to_numpy)
+
+
+class HostCopy:
+    """A device->host copy in flight (the JAX package's
+    copy_to_host_async): on CUDA a non_blocking copy into pinned host
+    memory and the event recorded after it; `numpy()` waits for that
+    event only.  On the CPU it is the tensor itself."""
+
+    def __init__(self, t: torch.Tensor):
+        self._event = None
+        if t.device.type == "cuda":
+            self._host = torch.empty(t.shape, dtype=t.dtype,
+                                     pin_memory=True)
+            self._host.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(t.device))
+        else:
+            self._host = t
+
+    def numpy(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()

@@ -277,10 +277,21 @@ def test_normal_sweep_prescan_matches_jax(tmp_path):
 @pytest.mark.parametrize("kw", [dict(ref_sweep=True),
                                 dict(ref_sweep_fallback=True)])
 def test_level_sweeps_are_not_ported_yet(tmp_path, kw):
-    cap = capture(tmp_path, "c", 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        tdd.DeviceBatchDecoder([(cap, str(tmp_path / "o.wav"))],
-                               device="cpu", **kw)
+    """The level sweeps are ported (the test keeps the name it had while
+    they raised): --quality insane / normal semantics on the
+    chip-resident path, the full sweep or the failed-lines sweep, give the
+    JAX driver's WAV and the native backend's on a noisy capture (mirror
+    of test_device_driver.test_device_driver_quality_sweeps_match_native)."""
+    kw = dict(kw, hyst_limit=4, shift_limit=2, frames_per_round=3,
+              normal_sweep_prescan="ref_sweep_fallback" in kw)
+    jobs = [(capture(tmp_path, "c", 4, seed=21, noise=30.0),
+             str(tmp_path / "o.wav"))]
+    got, dec = run(tdd.DeviceBatchDecoder, jobs, tmp_path, "dev",
+                   device="cpu", **kw)
+    assert dec.jobs[0].driver.sweep_calls > 0
+    assert got == run(jdd.DeviceBatchDecoder, jobs, tmp_path, "jdev",
+                      **kw)[0]
+    assert got == native_wav(jobs, tmp_path, **kw)
 
 
 def test_device_is_required_and_streaming_loops_wait(tmp_path):
@@ -288,8 +299,8 @@ def test_device_is_required_and_streaming_loops_wait(tmp_path):
     jobs = [(cap, str(tmp_path / "o.wav"))]
     with pytest.raises(TypeError):
         tdd.DeviceBatchDecoder(jobs)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tbd.BatchDecoder(jobs, device="cpu").run()
+    stats = tbd.BatchDecoder(jobs, device="cpu").run()   # streams now
+    assert stats[cap].lines_valid == 2 * 2 * PAL
     with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         tbd.BatchDecoder(jobs, fmt="pcm1", device="cpu")
     dec = tdd.DeviceBatchDecoder(jobs, device="cpu")

@@ -260,3 +260,151 @@ def test_driver_kernel_path_matches_plain(cuda, tmp_path, noise):
             chip_smoke.GOLDEN_SHA256["pal"]
     else:
         assert j.driver.fallback_batches > 0
+
+
+LEVELS = np.arange(254, 1, -4, dtype=np.int32)
+
+
+@pytest.mark.parametrize("n_frames,lines_pf,limits", [
+    (4, 588, (4, 2)),      # NORMAL, PAL frames
+    (2, 588, (10, 4)),     # INSANE
+    (64, 1, (4, 2)),       # the sweep fallback's bucket
+    (64, 1, (10, 4)),
+])
+def test_sweep_kernel_route_matches_plain(cuda, n_frames, lines_pf, limits):
+    """The level sweep through K1 (one launch per level) against the
+    plain sweep: every field at every level, with black/white that leave
+    levels outside the open interval; R launches and no copy per call."""
+    import chip_smoke
+    px, cd = noisy_frames(n_frames, lines_pf, 30.0, seed=lines_pf,
+                          device=cuda)
+    gen = torch.Generator().manual_seed(7)
+    black = torch.randint(0, 90, (n_frames,), generator=gen,
+                          dtype=torch.int32).to(cuda)
+    white = torch.randint(130, 256, (n_frames,), generator=gen,
+                          dtype=torch.int32).to(cuda)
+    levels = torch.from_numpy(LEVELS).to(cuda)
+    before = fb.stc007_fused_decode_frames.launches
+    got = fb.stc007_ref_sweep_decode(px, cd, black, white, levels, *limits)
+    torch.cuda.synchronize()
+    assert fb.stc007_fused_decode_frames.launches == before + len(LEVELS)
+    expect = bz.stc007_ref_sweep_decode(px, cd, black, white, levels,
+                                        *limits)
+    assert set(got) == set(expect)
+    for name, e in expect.items():
+        g = got[name]
+        assert g.dtype == e.dtype and g.shape == e.shape, name
+        assert torch.equal(g, e), name
+    outside = (levels[:, None] <= black[None]) \
+        | (levels[:, None] >= white[None])
+    assert bool(outside.any()) and not bool(got["valid"][outside].any())
+    rows = chip_smoke.cuda_rows(lambda: fb.stc007_ref_sweep_decode(
+        px, cd, black, white, levels, *limits), launches=len(LEVELS))
+    # The exact count is the wrapper's (above); a trace may lack a few of
+    # the 64 rows, but holds nothing but K1 and no copy.
+    assert set(rows["kernels"]) == {"stc007_binarize_frames_kernel"}, rows
+    assert 0 < len(rows["kernels"]) <= len(LEVELS), rows
+    assert rows["copies"] == [], rows
+
+
+def test_sweep_refuses_what_the_kernel_cannot_take(cuda):
+    """On CUDA tensors the sweep launches K1 or raises: it never runs the
+    plain sweep instead."""
+    px, cd = noisy_frames(2, 40, 10.0, seed=1, device=cuda)
+    lv = torch.full((2,), 20, dtype=torch.int32, device=cuda)
+    levels = torch.from_numpy(LEVELS).to(cuda)
+    with pytest.raises(ValueError):
+        fb.stc007_ref_sweep_decode(px[:, :, ::2], cd, lv, lv + 180, levels)
+    with pytest.raises(ValueError):
+        fb.stc007_ref_sweep_decode(px, cd, lv[:1], lv + 180, levels)
+
+
+@pytest.mark.parametrize("quality", ["normal", "insane"])
+def test_driver_sweep_kernel_route_matches_plain(cuda, tmp_path, quality):
+    """The chip-resident driver at the CLI's NORMAL and INSANE settings on
+    a noisy 8-frame PAL capture: the WAV with the sweeps through K1 equals
+    the WAV with the plain sweeps, and the sweeps ran."""
+    import chip_smoke
+    from sdvpcmdecoder_tpu_torch.pipeline import device_driver as dd
+    cap = chip_smoke.write_capture(str(tmp_path / "c.y4m"), 8, 294, seed=3,
+                                   noise=34.0)
+    hyst, shift = (4, 2) if quality == "normal" else (10, 4)
+    wavs, sweeps = {}, {}
+    for use_kernel in (True, False):
+        out = str(tmp_path / f"o{int(use_kernel)}.wav")
+        before = fb.stc007_fused_decode_frames.launches
+        dec = dd.DeviceBatchDecoder(
+            [(cap, out)], hyst_limit=hyst, shift_limit=shift,
+            frames_per_round=4, device=cuda, use_kernel=use_kernel,
+            ref_sweep=quality == "insane",
+            ref_sweep_fallback=quality == "normal",
+            normal_sweep_prescan=True)
+        dec.run()
+        j = dec.jobs[0]
+        sweeps[use_kernel] = j.driver.sweep_calls
+        launched = fb.stc007_fused_decode_frames.launches - before
+        if use_kernel:
+            assert launched == len(j.round_chained) \
+                + j.driver.fallback_batches \
+                + len(LEVELS) * j.driver.sweep_calls
+        else:
+            assert launched == 0
+        wavs[use_kernel] = open(out, "rb").read()
+    assert wavs[True] == wavs[False]
+    assert sweeps[True] == sweeps[False] > 0
+
+
+def test_v2d_per_line_agc_goes_through_k1(cuda):
+    """per_line_agc hands the streamed dispatch levels [F, L]: with
+    use_kernel it launches K1 on them (one launch a dispatch) and decodes
+    as the plain grid does."""
+    from sdvpcmdecoder_tpu_torch.pipeline import v2d
+    px, _ = noisy_frames(4, 588, 26.0, seed=5, device="cpu")
+    px = px.numpy()
+    res = {}
+    for use_kernel in (True, False):
+        drv = v2d.V2DDriver(hyst_limit=4, shift_limit=2, per_line_agc=True,
+                            device=cuda, use_kernel=use_kernel)
+        prep = drv.prepare_frames(px)
+        assert prep["refs"].ndim == 2
+        before = fb.stc007_fused_decode_frames.launches
+        res[use_kernel] = drv.dispatch_frames(px, prep)
+        assert fb.stc007_fused_decode_frames.launches - before \
+            == int(use_kernel)
+    for a, b in zip(res[True], res[False]):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    assert res[True][2].any()
+
+
+def test_cli_default_backend_runs_the_grid_on_the_card(cuda, tmp_path):
+    """The CLI with no --backend and no --device: every batch's trial grid
+    is a K1 launch, and the WAV is the explicit native backend's."""
+    import chip_smoke
+    from sdvpcmdecoder_tpu_torch.__main__ import main
+    cap = chip_smoke.write_capture(str(tmp_path / "c.y4m"), 12, 294, seed=1)
+    outs = [str(tmp_path / f"o{k}.wav") for k in range(2)]
+    before = fb.stc007_fused_decode_frames.launches
+    assert main([cap, "-o", outs[0], "--batch", "4"]) == 0
+    assert fb.stc007_fused_decode_frames.launches - before >= 3
+    before = fb.stc007_fused_decode_frames.launches
+    assert main([cap, "-o", outs[1], "--batch", "4", "--backend",
+                 "native"]) == 0
+    assert fb.stc007_fused_decode_frames.launches == before
+    assert open(outs[0], "rb").read() == open(outs[1], "rb").read()
+
+
+def test_cli_on_the_card_matches_the_golden_hash(cuda, tmp_path):
+    """python -m sdvpcmdecoder_tpu_torch at its defaults (device cuda) on
+    the noisy golden capture, under every backend."""
+    import hashlib
+
+    import chip_smoke
+    from sdvpcmdecoder_tpu_torch.__main__ import main
+    cap = chip_smoke.write_capture(str(tmp_path / "n.y4m"),
+                                   **chip_smoke.CLI_NOISY)
+    out = str(tmp_path / "o.wav")
+    for quality, backend, extra in chip_smoke.CLI_GOLDEN_RUNS:
+        assert main([cap, "-o", out, "--quality", quality, "--backend",
+                     backend] + extra) == 0
+        assert hashlib.sha256(open(out, "rb").read()).hexdigest() == \
+            chip_smoke.GOLDEN_CLI_SHA256["noisy"], (quality, backend)

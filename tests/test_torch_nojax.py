@@ -80,6 +80,43 @@ with tempfile.TemporaryDirectory() as tmp:
     back, rate = wav.read_wav(f"{tmp}/o.wav")
 assert sn.available() and dec.jobs[0].stitcher.seam_backend == "tpu-spec"
 assert len(back) > 0 and rate == 44100 and stats.lines_valid == 6 * 588
+
+# The level sweep, the streaming backends and the CLI.
+from sdvpcmdecoder_tpu_torch.ops import binarize as bz
+from sdvpcmdecoder_tpu_torch.pipeline import batch_driver as bd
+from sdvpcmdecoder_tpu_torch.pipeline import full_decoder, live_audio, render
+from sdvpcmdecoder_tpu_torch.utils import dump
+from sdvpcmdecoder_tpu_torch.__main__ import main as cli_main
+sw = fb.stc007_ref_sweep_decode(
+    px3[:, :24].contiguous(), torch.from_numpy(coords[::LF]),
+    torch.full((F,), 20, dtype=torch.int32),
+    torch.full((F,), 200, dtype=torch.int32),
+    torch.arange(254, 1, -4, dtype=torch.int32), hyst_limit=2, shift_limit=1)
+pick, good, _ = bz.pick_ref_sweep(*(sw[k].reshape(64, -1).numpy()
+                                    for k in ("valid", "crc", "hyst",
+                                              "shift")))
+assert (pick >= 0).all() and good.all()
+with tempfile.TemporaryDirectory() as tmp:
+    cap = chip_smoke.write_capture(f"{tmp}/n.y4m", 4, 48, seed=2, noise=36.0)
+    wavs = {}
+    for backend in ("native", "tpu"):
+        dec = bd.BatchDecoder([(cap, f"{tmp}/{backend}.wav")], hyst_limit=4,
+                              shift_limit=2, frames_per_round=2,
+                              lines_per_field=None, backend=backend,
+                              ref_sweep_fallback=True,
+                              normal_sweep_prescan=True, device="cpu")
+        dec.run()
+        assert dec.jobs[0].driver.sweep_calls > 0
+        wavs[backend] = open(f"{tmp}/{backend}.wav", "rb").read()
+    assert wavs["native"] == wavs["tpu"] and len(wavs["tpu"]) > 1000
+    for backend, quality in (("auto", "normal"), ("tpu", "insane"),
+                             ("device", "normal")):
+        assert cli_main([cap, "-o", f"{tmp}/cli.wav", "--backend", backend,
+                         "--quality", quality, "--batch", "2", "--device",
+                         "cpu"]) == 0
+        same = open(f"{tmp}/cli.wav", "rb").read() == wavs["tpu"]
+        assert same or quality == "insane", (backend, quality)
+    assert cli_main([cap, "--format", "pcm1", "--device", "cpu"]) == 2
 assert not any(m == "jax" or m.startswith(("jax.", "sdvpcmdecoder_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("SLICE_OK")
@@ -104,7 +141,9 @@ def test_no_source_imports_jax_or_the_jax_package():
             "pipeline/stitcher_stc007.py", "pipeline/v2d.py",
             "pipeline/batch_driver.py", "pipeline/device_driver.py",
             "pipeline/ingest.py", "utils/stats.py", "utils/resume.py",
-            "utils/host.py"} <= names
+            "utils/host.py", "__main__.py", "pipeline/full_decoder.py",
+            "pipeline/live_audio.py", "pipeline/render.py",
+            "utils/dump.py"} <= names
     for path in files:
         text = path.read_text()
         assert "import jax" not in text, path
