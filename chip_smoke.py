@@ -551,6 +551,476 @@ def driver_device_busy(jobs, tmp, **kw):
             sum(e.count for e in rows), wall * 1e3)
 
 
+# ---- PCM-1 / PCM-16x0 (phases P1-P5) ---------------------------------------
+# The PCM path runs neither K1 nor K2: its trial grid is plain torch on the
+# card (ops/binarize.generic_frame_decode), as it is XLA in the JAX package.
+PCM_FORMATS = ("pcm1", "pcm16x0")
+PCM_WIDTH = {"pcm1": 1024, "pcm16x0": 1600}
+PCM_LPF = 245                  # NTSC fields: 490 lines a frame
+PCM_GRID_FRAMES = 16           # P1: the plain grid, card against CPU
+PCM_NOISE = {"pcm1": 14.0, "pcm16x0": 10.0}   # tests/test_device_pcm.py
+FAST = (2, 1)                  # (hyst_limit, shift_limit), --quality fast
+PCM_DRIVER_CAPS = 4            # P3: captures per format ...
+PCM_DRIVER_FRAMES = 48         # ... of this many frames each
+PCM_ROUND_FRAMES = 16
+PCM_TIMED_RUNS = 5
+PCM_NOISY_FRAMES = 6           # P4: tests/test_device_pcm.py's captures
+PCM_NOISE_REFINE = {"pcm1": 30.0, "pcm16x0": 26.0}   # ... and noisier ones
+
+# sha256 of the WAV the JAX package's CLI writes at its defaults,
+#     python -m sdvpcmdecoder_tpu cap.y4m -o out.wav --format <fmt>
+# under --backend native, tpu and device and with no --backend, for the
+# captures of PCM_GOLDEN (--format auto on the PCM-1 capture probes pcm1
+# and writes the same bytes); tests/test_torch_pcm_cli_golden.py
+# recomputes them from the JAX package's CLI.
+PCM_GOLDEN = {   # name: (--format, writer, writer arguments)
+    "pcm1": ("pcm1", "write_pcm1_capture", dict(n_frames=3, seed=31)),
+    "pcm16x0": ("pcm16x0", "write_pcm16x0_capture",
+                dict(n_frames=3, seed=32)),
+    "pcm1630": ("pcm1630", "write_pcm1630_capture",
+                dict(n_frames=2, seed=102)),
+}
+GOLDEN_PCM_SHA256 = {
+    "pcm1": "8a696a4d52e8b78f638b99f26ed6c4fe18ddeaad1b35e31d9163a7bcfa9d1196",
+    "pcm16x0":
+        "b7efa1266304d5cccb5f227c74178cf992fb4aef35a62763b51b08e6f0e6d538",
+    "pcm1630":
+        "4951c2b0ac764a0c98e50fa4ff58f81e590e116ccb7684f73f5b6e3e7701d6f9",
+}
+PCM_CLI_BACKENDS = ("device", "tpu", "native", None)
+
+
+def _pcm1_field_bits(rng):
+    """One PCM-1 field's 245 line bit rows from fresh random words (the
+    recipe of the JAX package's tests)."""
+    from sdvpcmdecoder_tpu_torch.formats import pcm1
+    from sdvpcmdecoder_tpu_torch.ops import pcm1_deint as di1
+    left = rng.integers(0, 1 << 13, di1.FIELD_SUBLINES)
+    right = rng.integers(0, 1 << 13, di1.FIELD_SUBLINES)
+    sl, sr = di1.interleave_field(left, right)
+    words = np.zeros((PCM_LPF, 6), np.int64)
+    words[:, 0::2] = np.stack([sl[0::3], sl[1::3], sl[2::3]], 1)
+    words[:, 1::2] = np.stack([sr[0::3], sr[1::3], sr[2::3]], 1)
+    crcs = pcm1.calc_crc(words, xp=np)
+    return pcm1.words_to_data_bits(words, crcs, xp=np)
+
+
+def write_pcm1_capture(path, n_frames=3, seed=31):
+    """A y4m PCM-1 capture, 490 lines x 1024 px, 10 px a bit: the bytes
+    of tests/test_batch_driver_formats.py's _pcm1_capture. Returns path."""
+    from sdvpcmdecoder_tpu_torch.pipeline import ingest
+    from sdvpcmdecoder_tpu_torch.synth import encoder as enc
+    rng = np.random.default_rng(seed)
+    W = PCM_WIDTH["pcm1"]
+    vids = []
+    for _ in range(n_frames):
+        img = np.zeros((2 * PCM_LPF, W), np.uint8) + 20
+        for half in range(2):
+            px, _ = enc.render_bits(_pcm1_field_bits(rng), width=W,
+                                    ppb=10.0)
+            img[half::2] = px
+        vids.append(img)
+    ingest.write_y4m(path, np.stack(vids), chroma="mono")
+    return path
+
+
+def write_pcm16x0_capture(path, n_frames=3, seed=32):
+    """A y4m PCM-16x0 SI capture (control bit 1), 490 lines x 1600 px,
+    7 px a bit: the bytes of tests/test_batch_driver_formats.py's
+    _pcm16x0_capture (and of tests/test_cli_formats.py's SI capture at
+    its seed). Returns path."""
+    from sdvpcmdecoder_tpu_torch.formats import pcm16x0
+    from sdvpcmdecoder_tpu_torch.ops import pcm16x0_deint as di16
+    from sdvpcmdecoder_tpu_torch.pipeline import ingest
+    from sdvpcmdecoder_tpu_torch.synth import encoder as enc
+    rng = np.random.default_rng(seed)
+    W = PCM_WIDTH["pcm16x0"]
+    usable = (PCM_LPF * 3 // (3 * di16.SI_OFS)) * (3 * di16.SI_OFS)
+    vids = []
+    for _ in range(n_frames):
+        img = np.zeros((2 * PCM_LPF, W), np.uint8)
+        for half in range(2):
+            left = rng.integers(1, 1 << 16, usable)
+            right = rng.integers(1, 1 << 16, usable)
+            sub, _ = di16.interleave_field(left, right, PCM_LPF)
+            crcs = np.asarray(pcm16x0.calc_crc(sub, xp=np))
+            bits = pcm16x0.line_bits(sub.reshape(PCM_LPF, 3, 3),
+                                     crcs.reshape(PCM_LPF, 3), 1, xp=np)
+            px, _ = enc.render_bits(bits, width=W, ppb=7.0)
+            img[half::2] = px
+        vids.append(img)
+    ingest.write_y4m(path, np.stack(vids), chroma="mono")
+    return path
+
+
+def write_pcm1630_capture(path, n_frames=2, seed=102):
+    """A y4m PCM-1630 (EI) capture, 490 lines x 1600 px: the bytes of
+    tests/test_cli_formats.py's test_cli_pcm1630 capture. Returns path."""
+    from sdvpcmdecoder_tpu_torch.formats import pcm16x0
+    from sdvpcmdecoder_tpu_torch.ops import pcm16x0_deint as di16
+    from sdvpcmdecoder_tpu_torch.pipeline import ingest
+    from sdvpcmdecoder_tpu_torch.synth import encoder as enc
+    rng = np.random.default_rng(seed)
+    W = PCM_WIDTH["pcm16x0"]
+    L = 2 * PCM_LPF
+    vids = []
+    for _ in range(n_frames):
+        left = rng.integers(1, 1 << 16, size=di16.EI_OFS * 3)
+        right = rng.integers(1, 1 << 16, size=di16.EI_OFS * 3)
+        sub, _ = di16.interleave_field(left, right, L, ei=True)
+        crcs = pcm16x0.calc_crc(sub, xp=np)
+        bits = pcm16x0.line_bits(sub.reshape(L, 3, 3), crcs.reshape(L, 3),
+                                 0, xp=np)
+        px, _ = enc.render_bits(bits, width=W, ppb=7.0)
+        img = np.zeros((L, W), np.uint8)
+        img[0::2] = px[:PCM_LPF]
+        img[1::2] = px[PCM_LPF:]
+        vids.append(img)
+    ingest.write_y4m(path, np.stack(vids), chroma="mono")
+    return path
+
+
+def write_pcm_noisy(path, fmt, n_frames, seed, noise):
+    """The capture of the format's writer at `seed` with gaussian noise
+    from rng(seed + 1) on every pixel: tests/test_device_pcm.py's _noisy.
+    Returns path."""
+    from sdvpcmdecoder_tpu_torch.pipeline import ingest
+    writer = write_pcm1_capture if fmt == "pcm1" else write_pcm16x0_capture
+    with tempfile.TemporaryDirectory() as t2:
+        clean = writer(str(Path(t2) / "clean.y4m"), n_frames=n_frames,
+                       seed=seed)
+        with ingest.open_capture(clean) as rd:
+            frames = rd.read_frames(0, n_frames)
+    rng = np.random.default_rng(seed + 1)
+    frames = np.clip(frames.astype(np.int16)
+                     + rng.normal(0, noise, frames.shape),
+                     0, 255).astype(np.uint8)
+    ingest.write_y4m(path, frames, chroma="mono")
+    return path
+
+
+def pcm_grid_inputs(path, fmt, device):
+    """A PCM capture's fields [F, 490, W] u8 on `device` and the frame
+    levels PCMFrameDriver.prepare_frames finds for them (coords [F, 2],
+    ref/black/white [F] int32, clipped as _decode_batch clips them)."""
+    from sdvpcmdecoder_tpu_torch.pipeline import ingest, v2d_other
+    with ingest.open_capture(path) as rd:
+        lines, _ = ingest.split_fields_batch(rd.read_frames(0, rd.n_frames))
+    prep = v2d_other.PCMFrameDriver(fmt, backend="native",
+                                    device="cpu").prepare_frames(lines)
+    check(bool(prep["usable"].all()), f"{fmt}: frames without coordinates")
+    host = (prep["coords"], np.maximum(prep["refs"], 1),
+            np.clip(prep["blacks"], 0, 254), np.clip(prep["whites"], 1, 255))
+    return (torch.from_numpy(lines).to(device),
+            *(torch.from_numpy(a.astype(np.int32)).to(device) for a in host))
+
+
+def pcm_frame_decode(fmt):
+    from sdvpcmdecoder_tpu_torch.ops import binarize as bz
+    return bz.pcm1_frame_decode if fmt == "pcm1" else bz.pcm16x0_frame_decode
+
+
+def pcm_round_params(coords, refs, blacks, whites):
+    """pcm_round_packed's int32 parameter vector, every frame usable."""
+    from sdvpcmdecoder_tpu_torch.ops import device_pcm as dp
+    F = coords.shape[0]
+    o, n = dp.round_param_layout(F)
+    p = torch.ones(n, dtype=torch.int32, device=coords.device)
+    p[o["coords"]:o["coords"] + 2 * F] = coords.reshape(-1)
+    for key, t in (("refs", refs), ("blacks", blacks), ("whites", whites)):
+        p[o[key]:o[key] + F] = t
+    return p
+
+
+def pcm_driver_run(cls, jobs, tmp, tag, **kw):
+    """One run of a PCM driver class (BatchDecoder or
+    DevicePCMBatchDecoder) over `jobs` on the card: (WAV bytes per job,
+    the decoder, staging seconds, decode wall seconds), split as
+    driver_run splits them (BatchDecoder stages nothing)."""
+    import os
+    t0 = time.perf_counter()
+    dec = cls([(cap, os.path.join(tmp, f"{tag}_{k}.wav"))
+               for k, cap in enumerate(jobs)], **kw)
+    t1 = time.perf_counter()
+    dec.stage_t["stage_hbm"] = 0.0
+    dec.run()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    stage = t1 - t0 + dec.stage_t["stage_hbm"]
+    wall = t2 - t1 - dec.stage_t["stage_hbm"]
+    return ([open(j.out_path, "rb").read() for j in dec.jobs], dec, stage,
+            wall)
+
+
+def cli_run_captured(argv):
+    """cli_run with the CLI's standard output captured: (exit code, wall
+    seconds, printed lines)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc, secs = cli_run(argv)
+    return rc, secs, buf.getvalue().splitlines()
+
+
+def quartiles(xs):
+    q = statistics.quantiles(xs, n=4)
+    return q[0], statistics.median(xs), q[2]
+
+
+def pcm_phases(dev, card, tmp):
+    """Phases P1-P5; prints the timings as one "[pcm-json]" line. Returns
+    the K1 launches counted on the PCM paths (the device driver's runs,
+    the CLI's runs)."""
+    import hashlib
+    import os
+
+    from sdvpcmdecoder_tpu_torch.ops import device_pcm as dp
+    from sdvpcmdecoder_tpu_torch.ops import fused_binarize as fb
+    from sdvpcmdecoder_tpu_torch.pipeline import batch_driver, device_pcm
+    k1 = lambda: fb.stc007_fused_decode_frames.launches
+
+    # -- P1: the plain PCM grid, card against CPU ---------------------------
+    grid = {}
+    for fmt in PCM_FORMATS:
+        writer = write_pcm1_capture if fmt == "pcm1" \
+            else write_pcm16x0_capture
+        for noise in (0.0, PCM_NOISE[fmt]):
+            path = os.path.join(tmp, f"grid_{fmt}_{noise}.y4m")
+            if noise:
+                write_pcm_noisy(path, fmt, PCM_GRID_FRAMES, 3, noise)
+            else:
+                writer(path, n_frames=PCM_GRID_FRAMES, seed=3)
+            inputs = pcm_grid_inputs(path, fmt, dev)
+            cpu_in = [t.cpu() for t in inputs]
+            fn = pcm_frame_decode(fmt)
+            for mode, (hl, sl) in (("fast", FAST), ("normal", NORMAL)):
+                got = fn(*inputs, shift_limit=sl, hyst_limit=hl)
+                want = fn(*cpu_in, shift_limit=sl, hyst_limit=hl)
+                torch.cuda.synchronize()
+                for name, g, e in zip(("words", "crc_read", "valid",
+                                       "ctrl"), got, want):
+                    check(g.dtype == e.dtype and g.shape == e.shape
+                          and torch.equal(g.cpu(), e),
+                          f"P1 {fmt} {mode} sigma={noise}: {name} differs "
+                          f"between the card and the CPU")
+                grid[(fmt, noise, mode)] = inputs
+                F, L, W = inputs[0].shape
+                print(f"[pcm-grid] {fmt}_frame_decode {F}x{L}x{W} {mode} "
+                      f"(hyst {hl}, shift {sl}) sigma={noise}: card == CPU on "
+                      f"every output and dtype; valid "
+                      f"{int(got[2].sum())}/{got[2].numel()}")
+    grid_ms = {}
+    for fmt in PCM_FORMATS:
+        inputs = grid[(fmt, 0.0, "fast")]
+        fn = pcm_frame_decode(fmt)
+        ms, _ = median_ms_abab(
+            lambda: fn(*inputs, shift_limit=FAST[1], hyst_limit=FAST[0]),
+            lambda: fn(*inputs, shift_limit=NORMAL[1],
+                       hyst_limit=NORMAL[0]))
+        grid_ms[fmt] = ms
+    del grid
+
+    # -- P2: golden WAVs ----------------------------------------------------
+    n0 = k1()
+    golden = {}
+    for name, (fmt, writer, wkw) in PCM_GOLDEN.items():
+        cap = globals()[writer](os.path.join(tmp, f"gold_{name}.y4m"), **wkw)
+        golden[name] = cap
+        for backend in PCM_CLI_BACKENDS:
+            tag = backend or "default"
+            out = os.path.join(tmp, f"gold_{name}_{tag}.wav")
+            rc, secs, _ = cli_run_captured(
+                [cap, "-o", out, "--format", fmt]
+                + (["--backend", backend] if backend else []))
+            check(rc == 0, f"P2 {name}/{tag}: exit code {rc}")
+            digest = hashlib.sha256(open(out, "rb").read()).hexdigest()
+            check(digest == GOLDEN_PCM_SHA256[name],
+                  f"P2 {name}/{tag}: WAV sha256 {digest} is not the JAX "
+                  f"CLI's {GOLDEN_PCM_SHA256[name]}")
+        print(f"[pcm-cli] {name} capture ({wkw['n_frames']} frames) "
+              f"--format {fmt} under --backend device, tpu, native and "
+              f"none: WAV sha256 equals the JAX CLI's")
+    out = os.path.join(tmp, "gold_auto.wav")
+    rc, _, lines = cli_run_captured([golden["pcm1"], "-o", out, "--format",
+                                     "auto"])
+    probe = [ln for ln in lines if ln.startswith("format probe:")]
+    check(rc == 0 and probe and probe[0].startswith("format probe: pcm1 ")
+          and hashlib.sha256(open(out, "rb").read()).hexdigest()
+          == GOLDEN_PCM_SHA256["pcm1"],
+          f"P2 --format auto: exit {rc}, printed {probe}")
+    print(f"[pcm-cli] --format auto on the PCM-1 capture: printed "
+          f"{probe[0]!r}; WAV sha256 equals the JAX CLI's")
+    cli_k1 = k1() - n0
+
+    # -- P3: the chip-resident PCM driver at full width, timed --------------
+    n0 = k1()
+    timings = {}
+    for fmt in PCM_FORMATS:
+        writer = write_pcm1_capture if fmt == "pcm1" \
+            else write_pcm16x0_capture
+        caps = [writer(os.path.join(tmp, f"drv_{fmt}_{i}.y4m"),
+                       n_frames=PCM_DRIVER_FRAMES, seed=60 + i)
+                for i in range(PCM_DRIVER_CAPS)]
+        kw = dict(fmt=fmt, hyst_limit=FAST[0], shift_limit=FAST[1],
+                  frames_per_round=PCM_ROUND_FRAMES)
+        ref, _, _, ref_wall = pcm_driver_run(
+            batch_driver.BatchDecoder, caps, tmp, f"ref_{fmt}",
+            backend="native", device=dev, **kw)
+        n_fr = PCM_DRIVER_CAPS * PCM_DRIVER_FRAMES
+        fps, stages, stage_s = [], [], []
+        for r in range(PCM_TIMED_RUNS + 1):      # run 0: the warm-up
+            wavs, dec, stage, wall = pcm_driver_run(
+                device_pcm.DevicePCMBatchDecoder, caps, tmp,
+                f"dev_{fmt}", device=dev, **kw)
+            check(wavs == ref, f"P3 {fmt}: device driver WAVs differ "
+                  f"from the native BatchDecoder's (run {r})")
+            if r:
+                fps.append(n_fr / wall)
+                stage_s.append(stage)
+                stages.append({k: round(v, 4)
+                               for k, v in dec.stage_t.items()})
+        busy_ms, events, prof_wall_ms = pcm_device_busy(
+            device_pcm.DevicePCMBatchDecoder, caps, tmp, device=dev, **kw)
+        # One round on the card: kernel rows, device ms, the grid's share.
+        inputs = pcm_grid_inputs(caps[0], fmt, dev)
+        px = inputs[0][:PCM_ROUND_FRAMES]
+        lv = [t[:PCM_ROUND_FRAMES] for t in inputs[1:]]
+        params = pcm_round_params(*lv)
+        fn = pcm_frame_decode(fmt)
+        round_rows = cuda_profile(
+            lambda: dp.pcm_round_packed(px, params, fmt, FAST[1], FAST[0]),
+            1, lambda r: True)
+        grid_rows = cuda_profile(
+            lambda: fn(px, *lv, shift_limit=FAST[1], hyst_limit=FAST[0]),
+            1, lambda r: True)
+
+        def kernels(rows):
+            ks = [e for e in rows if "Memcpy" not in e.key
+                  and "Memset" not in e.key]
+            return (sum(e.count for e in ks),
+                    sum(e.self_device_time_total for e in ks) / 1e3,
+                    sum(e.count for e in rows) - sum(e.count for e in ks))
+        r_n, r_ms, r_copies = kernels(round_rows)
+        g_n, g_ms, _ = kernels(grid_rows)
+        round_wall, _ = median_ms_abab(
+            lambda: dp.pcm_round_packed(px, params, fmt, FAST[1], FAST[0]),
+            lambda: fn(px, *lv, shift_limit=FAST[1], hyst_limit=FAST[0]))
+        q1, med, q3 = quartiles(fps)
+        timings[fmt] = dict(
+            fps_median=med, fps_q1=q1, fps_q3=q3, fps_runs=fps,
+            stage_s=statistics.median(stage_s), stage_t=stages[len(stages)
+                                                               // 2],
+            native_fps=n_fr / ref_wall, busy_ms=busy_ms,
+            prof_wall_ms=prof_wall_ms, idle_share=1 - busy_ms / prof_wall_ms,
+            cuda_events=events, round_kernel_rows=r_n,
+            round_device_ms=r_ms, round_copies=r_copies,
+            round_wall_ms=round_wall, grid_kernel_rows=g_n,
+            grid_device_ms=g_ms, grid_share=g_ms / r_ms,
+            grid_fast_ms=grid_ms[fmt])
+        t = timings[fmt]
+        print(f"[pcm-driver] DevicePCMBatchDecoder {fmt} "
+              f"{PCM_DRIVER_CAPS} x {PCM_DRIVER_FRAMES} frames "
+              f"{inputs[0].shape[1]}x{inputs[0].shape[2]}, fast, "
+              f"{PCM_ROUND_FRAMES} frames a round: WAVs equal the native "
+              f"BatchDecoder's in every run; {med} frames/s (median of "
+              f"{PCM_TIMED_RUNS} after a warm-up; quartiles {q1}, {q3}; "
+              f"decode wall, staging apart) against the native "
+              f"BatchDecoder's {n_fr / ref_wall} frames/s (one run); "
+              f"staging {t['stage_s']} s; stage_t {t['stage_t']}; device "
+              f"busy {busy_ms} ms of {prof_wall_ms} ms wall under "
+              f"torch.profiler = idle share {t['idle_share']} "
+              f"({events} CUDA events) on {card}")
+        print(f"[pcm-round] pcm_round_packed {fmt} {PCM_ROUND_FRAMES} "
+              f"frames fast (torch.profiler, one call): {r_n} kernel rows, "
+              f"{r_copies} copies, {r_ms} ms device time; the grid "
+              f"({fmt}_frame_decode alone) {g_n} kernel rows, {g_ms} ms = "
+              f"{g_ms / r_ms} of the round; round {round_wall} ms wall "
+              f"(CUDA events, median of 5); plain grid {grid_ms[fmt]} ms at "
+              f"fast on {PCM_GRID_FRAMES} frames on {card}")
+    device_k1 = k1() - n0
+
+    # -- P4: noisy captures through the device driver -----------------------
+    # The sigma 14 / 10 captures of tests/test_device_pcm.py decode with
+    # every line valid at hyst 0 / shift 1; the PCM_NOISE_REFINE ones fail
+    # lines, so that refine_failed_lines and the Bit Picker run.
+    n0 = k1()
+    for fmt in PCM_FORMATS:
+        for noise in (PCM_NOISE[fmt], PCM_NOISE_REFINE[fmt]):
+            caps = [write_pcm_noisy(
+                os.path.join(tmp, f"noisy_{fmt}_{noise}_{i}.y4m"), fmt,
+                PCM_NOISY_FRAMES, 40 + i, noise) for i in range(2)]
+            kw = dict(fmt=fmt, hyst_limit=0, shift_limit=1,
+                      frames_per_round=3, device=dev)
+            ref, _, _, _ = pcm_driver_run(
+                batch_driver.BatchDecoder, caps, tmp, f"nref_{fmt}",
+                backend="native", **kw)
+            wavs, dec, _, _ = pcm_driver_run(
+                device_pcm.DevicePCMBatchDecoder, caps, tmp, f"ndev_{fmt}",
+                **kw)
+            check(wavs == ref, f"P4 {fmt} sigma={noise}: WAVs differ from "
+                  f"the native BatchDecoder's")
+            check(noise == PCM_NOISE[fmt] or dec.fetched_frames > 0,
+                  f"P4 {fmt} sigma={noise}: no frame was refined")
+            valid = sum(j.stats.lines_valid for j in dec.jobs)
+            total = sum(j.stats.lines_total for j in dec.jobs)
+            rounds = 2 * -(-PCM_NOISY_FRAMES // 3)
+            print(f"[pcm-noisy] {fmt} sigma={noise}, 2 x {PCM_NOISY_FRAMES} "
+                  f"frames, 3 a round, hyst 0 shift 1: WAVs equal the "
+                  f"native BatchDecoder's; frames fetched for refinement "
+                  f"{dec.fetched_frames} in {dec.fetch_copies} copies over "
+                  f"{rounds} rounds ({dec.fetch_copies / rounds} copies a "
+                  f"round); lines valid {valid}/{total}")
+    device_k1 += k1() - n0
+
+    # -- P5: the CLI at its defaults -----------------------------------------
+    n0 = k1()
+    cli_fps = {}
+    for fmt in PCM_FORMATS:
+        cap = os.path.join(tmp, f"drv_{fmt}_0.y4m")
+        wavs = {}
+        for backend in PCM_CLI_BACKENDS:
+            tag = backend or "default"
+            out = os.path.join(tmp, f"cli5_{fmt}_{tag}.wav")
+            rc, secs, lines = cli_run_captured(
+                [cap, "-o", out, "--format", fmt]
+                + (["--backend", backend] if backend else []))
+            check(rc == 0, f"P5 {fmt}/{tag}: exit code {rc}")
+            wavs[tag] = open(out, "rb").read()
+            cli_fps[(fmt, tag)] = PCM_DRIVER_FRAMES / secs
+            shown = [ln for ln in lines if ln.startswith(("timings:",
+                                                          "decoded"))]
+            print(f"[pcm-cli] {fmt} {PCM_DRIVER_FRAMES} frames at the "
+                  f"defaults --backend {tag}: {PCM_DRIVER_FRAMES / secs} "
+                  f"frames/s (wall of main()); {' | '.join(shown)} on "
+                  f"{card}")
+        check(len(set(wavs.values())) == 1,
+              f"P5 {fmt}: the backends' WAVs differ")
+    cli_k1 += k1() - n0
+    check(cli_k1 == 0 and device_k1 == 0,
+          f"the PCM paths launched K1: CLI {cli_k1}, driver {device_k1}")
+    print(f"[pcm] K1 launches on the PCM paths: driver {device_k1}, CLI "
+          f"{cli_k1} (the PCM grid is plain torch)")
+    print("[pcm-json] " + json.dumps(dict(
+        card=card, driver=timings,
+        cli_fps={f"{f}/{b}": v for (f, b), v in cli_fps.items()})))
+    return dict(pcm_device=device_k1, pcm_cli=cli_k1)
+
+
+def pcm_device_busy(cls, jobs, tmp, **kw):
+    """driver_device_busy for a PCM driver class: (device busy ms, CUDA
+    events, decode wall ms) of one run under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, _, _, wall = pcm_driver_run(cls, jobs, tmp, "prof", **kw)
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in rows) / 1e3,
+            sum(e.count for e in rows), wall * 1e3)
+
+
 def main():
     check(torch.cuda.is_available(), "no CUDA device "
           "(torch.cuda.is_available() is false)")
@@ -1294,6 +1764,9 @@ def main():
     print(f"[cli] python -m sdvpcmdecoder_tpu_torch pal.y4m --backend device "
           f"(a subprocess): WAV sha256 equals the JAX CLI's; it printed: "
           f"{proc.stdout.strip().splitlines()[-1]}")
+
+    # -- phases P1-P5: PCM-1 and PCM-16x0 -----------------------------------
+    launches_pcm = pcm_phases(dev, card, tmp)
     tmpdir.cleanup()
     check(tree_digest(sn.NATIVE_SRC) == native_before,
           "sdvpcmdecoder_tpu/native/ changed during the run")
@@ -1308,7 +1781,11 @@ def main():
                    "driver_sweep_fallback": launches_sweepcap,
                    "driver_insane": launches_insane,
                    "v2d_per_line_agc": launches_agc,
-                   "cli": launches_cli}
+                   "cli": launches_cli,
+                   # The PCM paths run the plain torch grid: 0 launches,
+                   # counted (pcm_phases checks it).
+                   "pcm_device": launches_pcm["pcm_device"],
+                   "pcm_cli": launches_pcm["pcm_cli"]}
     # ms: the kernel's device time at the main path's shape (the round's
     # 16 x 588 x 1152, NORMAL); the other shapes and modes in "timings".
     # No single PyTorch call computes the trial grid: library_ms is null.

@@ -7,11 +7,12 @@ The batch-decoder equivalent of the reference desktop app's decode flow
 style per-frame stats print (mainwindow.h:108-194 analog).
 
 Port of sdvpcmdecoder_tpu/__main__.py, flags and defaults unchanged, for
-STC-007 and M2 from Y4M, raw and FFmpeg-transcoded captures.  It adds
+STC-007, M2, PCM-1, PCM-16x0 (SI), PCM-1630 (EI) and the format probe
+(--format auto) from Y4M, raw and FFmpeg-transcoded captures.  It adds
 --device (cuda, the default, or cpu); --pallas keeps its name and forces
-the hand-written CUDA kernel.  PCM-1, PCM-16x0, ArVid, the format probe
-and AVI/Matroska containers are not ported yet: asking for one prints
-an error and returns 2.
+the hand-written CUDA kernel (STC-007's trial grid; the PCM grid is plain
+torch on --device).  ArVid and AVI/Matroska containers are not ported
+yet: asking for one prints an error and returns 2.
 """
 from __future__ import annotations
 
@@ -26,8 +27,7 @@ def build_parser():
     p = argparse.ArgumentParser(
         prog="sdvpcmdecoder_tpu_torch",
         description="GPU decoder for PCM adapter audio on video "
-                    "captures (STC-007/PCM-F1/M2; PCM-1 and PCM-16x0 "
-                    "are not ported yet)")
+                    "captures (STC-007/PCM-F1/M2, PCM-1, PCM-16x0)")
     p.add_argument("input", help="input capture (.y4m or raw gray8)")
     p.add_argument("-o", "--output", default=None, help="output WAV path")
     p.add_argument("--format", default="stc007",
@@ -36,9 +36,8 @@ def build_parser():
                    help="PCM format (default stc007; auto probes the "
                         "capture's format signature; arvid is the "
                         "prototype word-dump path, no audio out — "
-                        "matching the reference's debug-only support); "
-                        "only stc007 and m2 are ported, the others "
-                        "print an error")
+                        "matching the reference's debug-only support, "
+                        "not ported yet: it prints an error)")
     p.add_argument("--raw-size", default=None,
                    help="WxH for raw input, e.g. 1152x588")
     p.add_argument("--standard", default="auto",
@@ -115,7 +114,7 @@ def build_parser():
 
 
 NOT_PORTED_CONTAINERS = (".avi", ".mkv", ".mka", ".webm")
-NOT_PORTED_FORMATS = ("pcm1", "pcm16x0", "pcm1630", "arvid", "auto")
+NOT_PORTED_FORMATS = ("arvid",)
 
 
 def _ensure_decodable_input(args):
@@ -156,7 +155,8 @@ def _decode_device(args, raw_size, mask_map, hyst, shift, out_path):
     """--backend device: the chip-resident batch driver through the
     single-capture CLI — pixels staged in device memory in bounded
     chunks, one fused round per dispatch
-    (pipeline/device_driver.DeviceBatchDecoder, STC-007/M2)."""
+    (pipeline/device_driver.DeviceBatchDecoder for STC-007/M2,
+    pipeline/device_pcm.DevicePCMBatchDecoder for PCM-1/16x0/1630)."""
     unsupported = [flag for flag, on in (
         ("--raw-size", bool(raw_size)),
         ("--no-ecc", args.no_ecc), ("--cwd", args.cwd),
@@ -167,6 +167,15 @@ def _decode_device(args, raw_size, mask_map, hyst, shift, out_path):
         ("--checkpoint", bool(args.checkpoint)),
         ("--dump-lines", bool(args.dump_lines)),
         ("--stats", args.stats)) if on]
+    if args.format not in ("stc007", "m2"):
+        # the PCM device drivers run their own fixed stage machines;
+        # reject rather than silently ignore these
+        unsupported += [flag for flag, on in (
+            ("--standard", args.standard != "auto"),
+            ("--field-order", args.field_order != "auto"),
+            ("--resolution", args.resolution != "auto"),
+            ("--sample-rate", bool(args.sample_rate)),
+            ("--per-line-agc", args.per_line_agc)) if on]
     if unsupported:
         print(f"error: --backend device does not support "
               f"{' '.join(unsupported)}; use --backend auto/native/tpu",
@@ -175,29 +184,37 @@ def _decode_device(args, raw_size, mask_map, hyst, shift, out_path):
     mask_mode = mask_map[(args.mask, args.mask_scope)]
     t0 = time.perf_counter()
     jobs = [(args.input, out_path)]
-    from .pipeline import device_driver
-    from .pipeline import stitcher_stc007 as st
-    # lines_per_field=None: derived from the driver's own reader —
-    # opening the input here just to read the height would consume
-    # a FIFO/stream input's header before the decoder reopens it.
-    preset_video = {"auto": None, "pal": st.VID_PAL,
-                    "ntsc": st.VID_NTSC}[args.standard]
-    dec = device_driver.DeviceBatchDecoder(
-        jobs, lines_per_field=None, hyst_limit=hyst,
-        shift_limit=shift, frames_per_round=args.batch,
-        mask_mode=mask_mode, use_kernel=args.pallas or None,
-        device=args.device,
-        ref_sweep=args.quality == "insane",
-        ref_sweep_fallback=args.quality == "normal",
-        normal_sweep_prescan=args.quality in ("normal", "insane"),
-        per_line_agc=args.per_line_agc,
-        mode_m2=args.format == "m2",
-        preset_video=preset_video,
-        preset_order={"auto": None, "tff": st.ORDER_TFF,
-                      "bff": st.ORDER_BFF}[args.field_order],
-        preset_resolution={"auto": None, "14bit": 1, "16bit": 2}[
-            args.resolution],
-        preset_sample_rate=args.sample_rate)
+    if args.format in ("stc007", "m2"):
+        from .pipeline import device_driver
+        from .pipeline import stitcher_stc007 as st
+        # lines_per_field=None: derived from the driver's own reader —
+        # opening the input here just to read the height would consume
+        # a FIFO/stream input's header before the decoder reopens it.
+        preset_video = {"auto": None, "pal": st.VID_PAL,
+                        "ntsc": st.VID_NTSC}[args.standard]
+        dec = device_driver.DeviceBatchDecoder(
+            jobs, lines_per_field=None, hyst_limit=hyst,
+            shift_limit=shift, frames_per_round=args.batch,
+            mask_mode=mask_mode, use_kernel=args.pallas or None,
+            device=args.device,
+            ref_sweep=args.quality == "insane",
+            ref_sweep_fallback=args.quality == "normal",
+            normal_sweep_prescan=args.quality in ("normal", "insane"),
+            per_line_agc=args.per_line_agc,
+            mode_m2=args.format == "m2",
+            preset_video=preset_video,
+            preset_order={"auto": None, "tff": st.ORDER_TFF,
+                          "bff": st.ORDER_BFF}[args.field_order],
+            preset_resolution={"auto": None, "14bit": 1, "16bit": 2}[
+                args.resolution],
+            preset_sample_rate=args.sample_rate)
+    else:
+        from .pipeline import device_pcm
+        dec = device_pcm.DevicePCMBatchDecoder(
+            jobs, fmt=args.format, hyst_limit=hyst, shift_limit=shift,
+            frames_per_round=args.batch, mask_mode=mask_mode,
+            refine=args.quality in ("normal", "insane"),
+            device=args.device)
     stats = dec.run()
     s = list(stats.values())[0]
     dt = max(time.perf_counter() - t0, 1e-9)
@@ -252,12 +269,9 @@ def _make_live(spec, rate):
 def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.format in NOT_PORTED_FORMATS:
-        what = {"arvid": "the ArVid word-dump path",
-                "auto": "the format probe (pipeline/probe.py)"}.get(
-            args.format, "the PCM-1/PCM-16x0 decode chain")
-        print(f"error: --format {args.format}: {what} is not ported yet; "
-              "this package decodes --format stc007 and m2",
-              file=sys.stderr)
+        print(f"error: --format {args.format}: the ArVid word-dump path "
+              "is not ported yet; this package decodes --format stc007, "
+              "m2, pcm1, pcm16x0, pcm1630 and auto", file=sys.stderr)
         return 2
     if args.device == "cuda":
         import torch
@@ -292,9 +306,25 @@ def main(argv=None):
         return 2
     args.input = decodable
 
+    if args.format == "auto":
+        from .pipeline import probe
+        fmt, scores = probe.probe_capture(args.input, raw_size=raw_size)
+        if fmt is None:
+            print(f"error: cannot detect PCM format of {args.input!r} "
+                  f"(scores {scores}); pass --format explicitly",
+                  file=sys.stderr)
+            return 2
+        print(f"format probe: {fmt} "
+              f"({', '.join(f'{k}={v:.2f}' for k, v in scores.items())})")
+        args.format = fmt
+
     if args.backend == "device":
         return _decode_device(args, raw_size, mask_map, hyst, shift,
                               out_path)
+
+    if args.format in ("pcm1", "pcm16x0", "pcm1630"):
+        return _decode_other_format(args, raw_size, mask_map, hyst, shift,
+                                    out_path)
 
     t0 = time.perf_counter()
     with ingest.open_capture(args.input, raw_size=raw_size) as rd:
@@ -562,6 +592,219 @@ def main(argv=None):
     agg.peak_level = audio_peak
     agg.frames_no_pcm = frames_no_pcm
     print(agg.summary())
+    print("timings: " + ", ".join(f"{k} {v:.2f}s"
+                                  for k, v in stage_t.items()))
+    print(f"decoded {frame_no} frames in {dt:.2f}s "
+          f"({frame_no / dt:.1f} fps) -> {out_path}")
+    return 0
+
+
+
+def _decode_other_format(args, raw_size, mask_map, hyst, shift, out_path):
+    """PCM-1 / PCM-16x0 CLI decode path (pixels -> format stitcher).
+
+    The trial grid runs on --device (the "tpu" backend) unless --backend
+    native asks for the host's C++ grid; auto resolves as
+    batch_driver.resolve_auto_backend does (the card under --device cuda,
+    the JAX package's rule under --device cpu)."""
+    from .pipeline import ingest, audio as ap, wav
+    from .pipeline import stitcher_pcm1 as sp1
+    from .pipeline import stitcher_pcm16x0 as sp16
+    from .pipeline.stitcher_stc007 import (ORDER_TFF, ORDER_BFF, ORDER_UNK,
+                                           chunks_to_arrays)
+
+    proc = ap.AudioProcessor(mask_mode=mask_map[(args.mask,
+                                                 args.mask_scope)])
+    order = {"auto": ORDER_TFF, "tff": ORDER_TFF, "bff": ORDER_BFF}[
+        args.field_order]
+    if args.format == "pcm1":
+        stitcher = sp1.PCM1Stitcher(field_order=order)
+    else:
+        fmt16 = sp16.FORMAT_EI if args.format == "pcm1630" \
+            else sp16.FORMAT_SI
+        # EI auto-detects field order through the padding sweep.
+        order16 = ORDER_UNK if (args.field_order == "auto"
+                                and fmt16 == sp16.FORMAT_EI) else order
+        # --format pcm16x0 auto-switches SI->EI from the control-bit
+        # stream (BIT_FORMAT_OFS, collectCtrlBitStats :4745); pcm1630
+        # pins EI explicitly.
+        stitcher = sp16.PCM16X0Stitcher(field_order=order16, fmt=fmt16,
+                                        en_p=not args.no_ecc,
+                                        preset_sample_rate=args.sample_rate,
+                                        auto_fmt=args.format == "pcm16x0")
+    fmt_drv = "pcm1" if args.format == "pcm1" else "pcm16x0"
+    from .pipeline import v2d_other
+    driver = v2d_other.PCMFrameDriver(
+        fmt_drv, shift_limit=shift, hyst_limit=hyst,
+        refine=args.quality in ("normal", "insane"),
+        backend=args.backend if args.backend in ("native", "tpu")
+        else "auto", device=args.device)
+    t0 = time.perf_counter()
+    stage_t = {"read": 0.0, "decode": 0.0, "stitch": 0.0, "audio": 0.0}
+    writer = None
+    live = None
+    frame_no = 0
+    start_base = 0
+    if args.checkpoint:
+        from .utils import resume as ckpt
+        import os as _os
+        if _os.path.exists(args.checkpoint + ".json"):
+            frame_no, audio_out, ck_rate = ckpt.load_checkpoint(
+                args.checkpoint, stitcher, audio=proc, driver=driver)
+            start_base = frame_no
+            writer = wav.WavWriter(out_path, ck_rate, resume_at=audio_out)
+            print(f"resuming at frame {frame_no}, "
+                  f"{audio_out} samples written")
+    with ingest.open_capture(args.input, raw_size=raw_size) as rd:
+        print(f"input: {rd.width}x{rd.height}, {rd.n_frames} frames")
+        for base, batch in _frame_batches(rd, start_base, args.frames,
+                                          args.batch):
+            if batch.shape[0] == 0:
+                continue
+            t_rd = time.perf_counter()
+            lines_b, nums = ingest.split_fields_batch(batch)
+            L = lines_b.shape[1]
+            t_dc = time.perf_counter()
+            stage_t["read"] += t_dc - t_rd
+            results = driver.decode_frames(lines_b)
+            t_st = time.perf_counter()
+            stage_t["decode"] += t_st - t_dc
+            for f, res in enumerate(results):
+                frame_no += 1
+                if res is None:
+                    continue
+                wl1 = res.words
+                cl1 = res.crc_read
+                if args.dump_lines:
+                    from .utils import dump
+                    fmt_d = "pcm1" if args.format == "pcm1" else "pcm16x0"
+                    w_d = wl1 if fmt_d == "pcm1" \
+                        else np.asarray(wl1).reshape(-1, 3)
+                    c_d = cl1 if fmt_d == "pcm1" \
+                        else np.asarray(cl1).reshape(-1)
+                    v_d = res.valid if fmt_d == "pcm1" \
+                        else np.asarray(res.valid).reshape(-1)
+                    for row in dump.dump_lines(w_d, c_d, v_d, fmt=fmt_d,
+                                               limit=args.dump_lines):
+                        print(f"F[{frame_no:04d}] {row}")
+                if args.format == "pcm1":
+                    store = sp1.PCM1LineStore.from_decoded(
+                        wl1, cl1, np.full(L, frame_no), nums,
+                        ref_level=np.full(L, res.ref_level),
+                        valid=res.valid)
+                    if args.render_dir:
+                        from .pipeline import render as rn
+                        import os as _os
+                        _os.makedirs(args.render_dir, exist_ok=True)
+                        rn.write_ppm(_os.path.join(
+                            args.render_dir, f"frame_{frame_no:05d}.ppm"),
+                            rn.render_pcm1_lines(
+                                wl1, cl1, store.crc_valid()))
+                        rn.write_ppm(_os.path.join(
+                            args.render_dir,
+                            f"source_{frame_no:05d}.ppm"),
+                            rn.render_source_lines(lines_b[f]))
+                    if frame_no == 1:
+                        tag = sp1.PCM1LineStore(1)
+                        tag.service[0] = sp1.SRV_NEW_FILE
+                        tag.frame_number[0] = frame_no
+                        store = sp1.PCM1LineStore.concat([tag, store])
+                    stitcher.push_frame(store)
+                else:
+                    store = sp16.PCM16X0LineStore.from_decoded(
+                        wl1, cl1, np.full(L * 3, frame_no),
+                        np.repeat(nums, 3), np.tile(np.arange(3), L),
+                        control_bit=np.repeat(res.ctrl, 3),
+                        picked_left=res.picked_left,
+                        picked_right=res.picked_right, valid=res.valid)
+                    if args.render_dir:
+                        from .pipeline import render as rn
+                        import os as _os
+                        _os.makedirs(args.render_dir, exist_ok=True)
+                        rn.write_ppm(_os.path.join(
+                            args.render_dir, f"frame_{frame_no:05d}.ppm"),
+                            rn.render_pcm16x0_sublines(
+                                wl1, cl1, store.crc_valid(),
+                                control_bit=store.control_bit))
+                        rn.write_ppm(_os.path.join(
+                            args.render_dir,
+                            f"source_{frame_no:05d}.ppm"),
+                            rn.render_source_lines(lines_b[f]))
+                    if frame_no == 1:
+                        tag = sp16.PCM16X0LineStore(1)
+                        tag.service[0] = sp16.SRV_NEW_FILE
+                        tag.frame_number[0] = frame_no
+                        store = sp16.PCM16X0LineStore.concat([tag, store])
+                    stitcher.push_frame(store)
+            if args.stats:
+                # Per-frame work log (the MainWindow column log analog,
+                # mainwindow.h:115-194) for the PCM-1/16x0 paths.
+                for fr in stitcher.frame_log[-batch.shape[0]:]:
+                    if args.format == "pcm1":
+                        print(f"F[{fr.frame_number:04d}] "
+                              f"ord={'-TB'[fr.field_order]} "
+                              f"hdr[{int(getattr(fr, 'header', 0))}] "
+                              f"emph[{int(fr.emphasis)}] "
+                              f"blk[{fr.blocks_total:4d}] "
+                              f"drop[{fr.blocks_drop:3d}]")
+                    else:
+                        print(f"F[{fr.frame_number:04d}] "
+                              f"ord={'-TB'[fr.field_order]} "
+                              f"{'EI' if fr.ei_format else 'SI'} "
+                              f"pad[{fr.odd_padding:02d}/"
+                              f"{fr.even_padding:02d}/"
+                              f"{fr.inner_padding:02d}] "
+                              f"rate[{fr.sample_rate}] "
+                              f"emph[{int(fr.emphasis)}] "
+                              f"blk[{fr.blocks_total:4d}] "
+                              f"P[{fr.blocks_fix_p:3d}] "
+                              f"brk[{fr.blocks_broken:3d}] "
+                              f"drop[{fr.blocks_drop:3d}]")
+            # Bound the work log over archive-length tapes (nothing
+            # reads past-batch entries on this path).
+            del stitcher.frame_log[:]
+            t_au = time.perf_counter()
+            stage_t["stitch"] += t_au - t_st
+            arrs = chunks_to_arrays(stitcher.pop_sample_chunks())
+            if arrs is not None:
+                samples, valid2, blk2, rate = arrs
+                out = proc.process(samples, valid2, blk2, file_end=False)
+                if writer is None:
+                    writer = wav.WavWriter(out_path, rate)
+                    live = _make_live(args.live_audio, rate)
+                writer.write(out)
+                writer.flush()
+                if live is not None and len(out):
+                    live.save_audio(out)
+            stage_t["audio"] += time.perf_counter() - t_au
+            if args.checkpoint:
+                from .utils import resume as ckpt
+                ckpt.save_checkpoint(
+                    args.checkpoint, frame_no, stitcher,
+                    writer.samples_written if writer else 0,
+                    writer.sample_rate if writer else 44100, audio=proc,
+                    driver=driver)
+    stitcher.finish()
+    arrs = chunks_to_arrays(stitcher.pop_sample_chunks())
+    if arrs is not None:
+        samples, valid2, blk2, rate = arrs
+        out = proc.process(samples, valid2, blk2, file_end=True)
+    else:
+        out, rate = proc.flush(), 44100
+    if len(out):
+        if writer is None:
+            writer = wav.WavWriter(out_path, rate)
+            live = _make_live(args.live_audio, rate)
+        writer.write(out)
+        if live is not None:
+            live.save_audio(out)
+    if writer is not None:
+        writer.close()
+    else:
+        print("warning: no decodable PCM found", file=sys.stderr)
+    if live is not None:
+        live.stop_output()
+    dt = max(time.perf_counter() - t0, 1e-9)
     print("timings: " + ", ".join(f"{k} {v:.2f}s"
                                   for k, v in stage_t.items()))
     print(f"decoded {frame_no} frames in {dt:.2f}s "

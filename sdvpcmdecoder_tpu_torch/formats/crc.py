@@ -105,3 +105,32 @@ def crc16_batch(bits: torch.Tensor, n_bits: int,
     """Batched CRC over bit matrices [..., n_bits] -> int32 CRC values."""
     table, const = crc16_linear_table(n_bits, init)
     return pack_bits_to_u16(matmul_bits(bits, table)) ^ const
+
+
+def words_to_bits_np(words: np.ndarray, bits_per_word) -> np.ndarray:
+    """Numpy twin of words_to_bits for host-side callers (int32 bits)."""
+    n_words = words.shape[-1]
+    if isinstance(bits_per_word, int):
+        bits_per_word = [bits_per_word] * n_words
+    cols = []
+    for w, nb in enumerate(bits_per_word):
+        shifts = np.arange(nb - 1, -1, -1)
+        cols.append((words[..., w][..., None].astype(np.int32) >> shifts) & 1)
+    return np.concatenate(cols, axis=-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _table_f32(n_bits: int, init: int):
+    table, const = crc16_linear_table(n_bits, init)
+    return np.ascontiguousarray(table, dtype=np.float32), const
+
+
+def crc16_batch_np(bits: np.ndarray, n_bits: int,
+                   init: int = CRC_INIT) -> np.ndarray:
+    """Numpy twin of crc16_batch for host-side checks -> int64 CRCs.
+
+    float32 BLAS matmul: 0/1 inputs, sums <= n_bits < 2^24 so exact."""
+    table, const = _table_f32(n_bits, init)
+    crc_bits = (bits.astype(np.float32) @ table).astype(np.int64) & 1
+    weights = (1 << np.arange(16)).astype(np.int64)
+    return ((crc_bits * weights).sum(axis=-1) ^ const).astype(np.int64)

@@ -56,6 +56,14 @@ def calc_ppb(data_start, data_stop, bit_count):
     return psm, half
 
 
+@functools.lru_cache(maxsize=None)
+def _pix_shifts(device):
+    """PIX_SH_BG and PIX_SH_ED on `device`, uploaded once: an upload from
+    pageable memory waits for the device's queue."""
+    return (torch.as_tensor(PIX_SH_BG, device=device),
+            torch.as_tensor(PIX_SH_ED, device=device))
+
+
 def bit_pixel_coords(data_start, psm, half, shift_stage, n_bits, bit_ofs,
                      bits_per_line, left_zone, right_zone, pixel_stop,
                      pixel_start=0):
@@ -70,8 +78,8 @@ def bit_pixel_coords(data_start, psm, half, shift_stage, n_bits, bit_ofs,
     base = (bit * psm[..., None] + half[..., None]) \
         // INT_CALC_MULT + data_start[..., None]
     stage = torch.as_tensor(shift_stage, device=device).long()
-    bg = torch.as_tensor(PIX_SH_BG, device=device)[stage]
-    ed = torch.as_tensor(PIX_SH_ED, device=device)[stage]
+    sh_bg, sh_ed = _pix_shifts(device)
+    bg, ed = sh_bg[stage], sh_ed[stage]
     uniform = bg == ed
     zone = torch.where(bit < left_zone, bg[..., None],
                        torch.where(bit > right_zone, ed[..., None], 0))
@@ -116,6 +124,19 @@ def hysteresis_read(pixels_at_bits, ref_low, ref_high):
         b = torch.cat([b[..., :d], torch.where(lb, rb, ra)], dim=-1)
         d *= 2
     return a.to(torch.int32)
+
+
+def hysteresis_read_np(pixels_at_bits, ref_low, ref_high):
+    """Serial numpy twin of hysteresis_read (the host search paths of
+    ops/line_decode_np)."""
+    out = np.zeros(pixels_at_bits.shape, dtype=np.int32)
+    prev = np.zeros(pixels_at_bits.shape[:-1], dtype=bool)
+    for i in range(pixels_at_bits.shape[-1]):
+        px = pixels_at_bits[..., i]
+        bit = np.where(prev, px >= ref_high, px > ref_low)
+        out[..., i] = bit
+        prev = bit
+    return out
 
 
 @functools.lru_cache(maxsize=None)
@@ -163,9 +184,11 @@ def _table(table, host_table, device):
     return table
 
 
-def _syndrome(bits, synd_table):
-    """Packed CRC syndrome of [..., 128] bits (0 for a valid line)."""
-    _, const = _syndrome_const()
+def _syndrome(bits, synd_table, const=None):
+    """Packed CRC syndrome of [..., n] bits (0 for a valid line); const is
+    the table's constant, STC-007's when None."""
+    if const is None:
+        _, const = _syndrome_const()
     return crc_mod.pack_bits_to_u16(gf2.matmul_bits(bits, synd_table)) ^ const
 
 
@@ -247,11 +270,14 @@ def _frame_samples(pixels, coords, n_s):
         for s in range(n_s)], dim=1)
 
 
-def _trial_grid(px, ref_level, black, white, n_h, n_s, synd_table):
-    """The (hyst, shift) trial grid on samples px [F, S, L, 128] at the
-    levels ref/black/white ([F] or [F, L]): the bits [F, L, 128] of the
+def _trial_grid(px, ref_level, black, white, n_h, n_s, synd_table,
+                synd_const=None):
+    """The (hyst, shift) trial grid on samples px [F, S, L, n] at the
+    levels ref/black/white ([F] or [F, L]): the bits [F, L, n] of the
     lexicographically first valid trial of every line (trial (0, 0) where
-    none is valid), its index pick [F, L] (0 there) and any_valid [F, L]."""
+    none is valid), its index pick [F, L] (0 there) and any_valid [F, L].
+    synd_table/synd_const are the format's syndrome map (STC-007's
+    constant when synd_const is None)."""
     F, _, L, _ = px.shape
     # Levels broadcast against [F, S, L]: per frame or per line.
     if ref_level.dim() == 2:
@@ -266,7 +292,8 @@ def _trial_grid(px, ref_level, black, white, n_h, n_s, synd_table):
         rh = torch.clamp(ref_level + h, max=254)
         read_ok = lvl((rl > black) & (rh < white))
         bits = hysteresis_read(px, lvl(rl), lvl(rh))         # [F,S,L,128]
-        valid = (_syndrome(bits, synd_table) == 0) & read_ok  # [F,S,L]
+        valid = (_syndrome(bits, synd_table, synd_const) == 0) \
+            & read_ok                                          # [F,S,L]
         if h == 0:
             chosen = bits[:, 0]
         for s in range(n_s):
@@ -430,3 +457,161 @@ def pick_ref_sweep(valid, crc, hyst, shift, min_valid_crcs=5):
     good = span >= min_valid_crcs
     forced_bad = (span > 0) & ~good
     return pick_idx, good, forced_bad
+
+
+# ---- PCM-1 / PCM-16x0 ---------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def format_syndrome_table(fmt: str):
+    """Affine syndrome map (TABLE [n,16] int32, CONST) for any format's
+    line bits: syndrome(bits) == 0 iff calculated CRC equals the read CRC.
+
+    Built numerically from the format's numpy CRC (linearity over GF(2)
+    makes n+1 evaluations sufficient); covers the PCM-1 complemented CRC
+    scheme transparently.
+    """
+    from ..formats import pcm1 as _p1, pcm16x0 as _p16
+
+    if fmt == "stc007":
+        table, const = stc007.crc_syndrome_table()
+        return table.astype(np.int32), const
+
+    if fmt == "pcm1":
+        nb = _p1.BITS_PCM_DATA
+
+        def synd(bits):
+            words, crc_read = _p1.data_bits_to_words(bits[None], xp=np)
+            return int(_p1.calc_crc(words, xp=np)[0]) ^ int(crc_read[0])
+    elif fmt == "pcm16x0":
+        nb = _p16.BITS_PCM_DATA
+
+        def synd(bits):
+            words, crc_read = _p16.data_bits_to_words(bits[None], xp=np)
+            return int(_p16.calc_crc(words, xp=np)[0]) ^ int(crc_read[0])
+    else:
+        raise ValueError(fmt)
+    zero = np.zeros(nb, dtype=np.int64)
+    const = synd(zero)
+    table = np.zeros((nb, 16), dtype=np.int32)
+    for i in range(nb):
+        e = zero.copy()
+        e[i] = 1
+        v = synd(e) ^ const
+        table[i] = [(v >> j) & 1 for j in range(16)]
+    return table, const
+
+
+@functools.lru_cache(maxsize=None)
+def _format_table_on(fmt, device):
+    """format_syndrome_table(fmt) with its TABLE on `device`, uploaded
+    once."""
+    table, const = format_syndrome_table(fmt)
+    return torch.as_tensor(table, device=device), const
+
+
+FORMAT_GEOM = {
+    # n_bits, bit_ofs(part-adjusted at call), bits_between, bits_per_line,
+    # left_zone, right_zone
+    "stc007": (stc007.BITS_PCM_DATA, stc007.COORD_BIT_OFS,
+               stc007.BITS_BETWEEN_COORDS, stc007.BITS_IN_LINE,
+               stc007.BITS_LEFT_SHIFT, stc007.BITS_RIGHT_SHIFT),
+    "pcm1": (94, 0, 94, 94, 16, 52),
+    "pcm16x0": (64, 0, 193, 193, 34, 107),
+}
+
+PCM16X0_PART_STARTS = (0, 64, 129)
+PCM16X0_CTRL_BIT = 128
+
+
+def _format_coords(coords, fmt, stages, n_bits, bit_ofs, width):
+    """Bit-centre columns [F, len(stages), n_bits] of `fmt`'s geometry
+    for bits bit_ofs.. at the given shift stages (an int32 tensor)."""
+    _, _, between, per_line, lz, rz = FORMAT_GEOM[fmt]
+    start = coords[:, 0].to(torch.int32)
+    stop = coords[:, 1].to(torch.int32)
+    psm, half = calc_ppb(start, stop, between)
+    return bit_pixel_coords(start[:, None], psm[:, None], half[:, None],
+                            stages[None, :], n_bits, bit_ofs, per_line,
+                            lz, rz, pixel_stop=width)
+
+
+def _pcm_grid(pixels, coords, ref_level, black, white, fmt, n_h, n_s,
+              part_starts):
+    """The trial grid of every part of every line in one pass: the parts
+    (PCM-16x0's three sublines, or PCM-1's one line) are independent lines
+    of the same geometry, so their samples stack on the line axis and
+    share one grid.  Returns (bits [F, L, P, n] int32, valid [F, L, P],
+    pick [F, L, P] int32)."""
+    F, L, W = pixels.shape
+    P = len(part_starts)
+    n_bits, bit_ofs = FORMAT_GEOM[fmt][:2]
+    stages = torch.arange(n_s, dtype=torch.int32, device=pixels.device)
+    pc = torch.stack([_format_coords(coords, fmt, stages, n_bits,
+                                     bit_ofs + p, W)
+                      for p in part_starts], dim=2)          # [F,S,P,n]
+    # One gather for every stage and part: [F, L, S*P*n] -> [F,S,P*L,n].
+    idx = pc.reshape(F, 1, n_s * P * n_bits).long().expand(F, L, -1)
+    px = torch.gather(pixels, 2, idx).view(F, L, n_s, P, n_bits) \
+        .permute(0, 2, 3, 1, 4).reshape(F, n_s, P * L, n_bits)
+    table, const = _format_table_on(fmt, pixels.device)
+    chosen, pick, any_valid = _trial_grid(px, ref_level, black, white,
+                                          n_h, n_s, table, const)
+    return (chosen.view(F, P, L, n_bits).transpose(1, 2),
+            any_valid.view(F, P, L).transpose(1, 2),
+            pick.view(F, P, L).transpose(1, 2))
+
+
+def generic_frame_decode(pixels, coords, ref_level, black, white, fmt,
+                         hyst_limit=0, shift_limit=2, part_start=0):
+    """Format-parameterized frame-grouped trial-grid decode.
+
+    The trial grid of stc007_frame_decode for PCM-1 (94-bit lines) and
+    PCM-16x0 (64-bit sublines; part_start in {0, 64, 129}). pixels
+    [F, L, W] uint8, coords [F, 2], ref/black/white [F] int32. Returns
+    (bits [F, L, n_bits] int32, valid [F, L], hyst, shift int32); lines
+    with no valid trial carry trial (0, 0).
+    """
+    n_h, n_s = hyst_limit + 1, shift_limit + 1
+    bits, valid, pick = _pcm_grid(pixels, coords, ref_level, black, white,
+                                  fmt, n_h, n_s, (part_start,))
+    pick = pick[..., 0]
+    return bits[:, :, 0], valid[..., 0], pick // n_s, pick % n_s
+
+
+def pcm1_frame_decode(pixels, coords, ref_level, black, white,
+                      shift_limit=2, hyst_limit=0):
+    """PCM-1 frame decode -> (words [F,L,6], crc_read [F,L], valid).
+
+    The hysteresis depth sweep applies to every format in the reference
+    (readPCMdata binarizer.cpp:7695 is the shared path; limits
+    binarizer.h:235-241) — hyst_limit adds that trial axis here too."""
+    from ..formats import pcm1 as _p1
+    bits, valid, _hyst, _shift = generic_frame_decode(
+        pixels, coords, ref_level, black, white, "pcm1",
+        hyst_limit=hyst_limit, shift_limit=shift_limit)
+    words, crc_read = _p1.data_bits_to_words(bits)
+    return words, crc_read, valid
+
+
+def pcm16x0_frame_decode(pixels, coords, ref_level, black, white,
+                         shift_limit=2, hyst_limit=0):
+    """PCM-16x0 frame decode: 3 sublines per line + control bit.
+
+    Returns (words [F, L, 3, 3], crc_read [F, L, 3], valid [F, L, 3],
+    ctrl_bit [F, L]).  The three parts share one trial grid (_pcm_grid);
+    the control bit is line bit 128 sampled at shift stage 0 with a plain
+    threshold.
+    """
+    from ..formats import pcm16x0 as _p16
+    n_h, n_s = hyst_limit + 1, shift_limit + 1
+    bits, valid, _pick = _pcm_grid(pixels, coords, ref_level, black, white,
+                                   "pcm16x0", n_h, n_s, PCM16X0_PART_STARTS)
+    words, crc_read = _p16.data_bits_to_words(bits)
+    F, L, W = pixels.shape
+    stage0 = torch.zeros(1, dtype=torch.int32, device=pixels.device)
+    cpx = _format_coords(coords, "pcm16x0", stage0, 1, PCM16X0_CTRL_BIT,
+                         W)                                    # [F, 1, 1]
+    cval = torch.gather(pixels, 2, cpx[:, 0].long().expand(F, L)[..., None])
+    ctrl = cval[..., 0].to(torch.int32) > ref_level[:, None]
+    return words, crc_read, valid, ctrl
+

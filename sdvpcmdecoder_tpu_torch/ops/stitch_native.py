@@ -285,6 +285,84 @@ def _load():
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p]
+    # PCM-1 / PCM-16x0 bindings.
+    L.pcm16x0_decode_blocks.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p]
+    L.pcm16x0_decode_blocks_rows.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p]
+    L.pcm_crc_rows.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p]
+    L.linegrid_coord_sweep.restype = ctypes.c_int
+    L.linegrid_coord_sweep.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_void_p, ctypes.c_void_p]
+    _frame_dec = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    L.pcm1_binarize_frames.argtypes = list(_frame_dec)
+    L.pcm16x0_binarize_frames.argtypes = list(_frame_dec) + \
+        [ctypes.c_void_p]
+    L.pcm_pick_cut_line.restype = ctypes.c_int
+    L.pcm_pick_cut_line.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_void_p, ctypes.c_void_p]
+    L.pcm_search_coordinates.restype = ctypes.c_int
+    L.pcm_search_coordinates.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p]
+    L.pcm1_field_deint.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p]
+    L.pcm1_steady_frame.restype = ctypes.c_int32
+    L.pcm1_steady_frame.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p]
+    L.pcm16x0_steady_frame.restype = ctypes.c_int32
+    L.pcm16x0_steady_frame.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p]
+    L.pcm16x0_block_flags.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p]
+    L.pcm16x0_burst_stats.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p]
     tpow_rows = np.zeros((13, gf2.BITS), dtype=np.uint16)
     for k in range(-6, 7):
         tpow_rows[k + 6] = _matrix_to_rows(gf2.tpow(k))
@@ -934,3 +1012,322 @@ def burst_stats(flags, unch_lim, en_q, max_burst_silence, max_burst_broken):
                          int(bool(en_q)), int(max_burst_silence),
                          int(max_burst_broken), out.ctypes.data)
     return int(out[0]), int(out[1]), int(out[2]), int(out[3])
+
+
+# ---- PCM-1 / PCM-16x0 ----------------------------------------------------
+
+def pcm16x0_decode_blocks(sub_words, sub_crc, shifts, even_order, ofs,
+                          en_p, force_ecc):
+    """Native PCM-16x0 block decode (P-parity-only correction).
+
+    Returns (words[B,3,3] i64, valid[B,3,3], wcrc[B,3,3], state[B,3],
+    stage[B,3], samples[B,3,2] i16, block_valid[B])."""
+    L = _load()
+    B = len(shifts)
+    w = np.ascontiguousarray(sub_words, np.int32)
+    c = _as_u8(sub_crc)
+    sh = np.ascontiguousarray(shifts, np.int64)
+    if B and (int(sh.min()) < 0
+              or int(sh.max()) + 2 * int(ofs) >= w.shape[0]):
+        # Keep the numpy path's loud failure instead of native UB reads.
+        raise IndexError(
+            f"block shifts out of range for {w.shape[0]} sublines")
+    eo = _as_u8(even_order)
+    # Outputs in their consumed dtypes (bool shares uint8's layout;
+    # int32 words/state/stage compare fine) — no post-call astype.
+    words = np.empty((B, 3, 3), np.int32)
+    valid = np.empty((B, 3, 3), bool)
+    wcrc = np.empty((B, 3, 3), bool)
+    state = np.empty((B, 3), np.int32)
+    stage = np.empty((B, 3), np.int32)
+    samples = np.empty((B, 3, 2), np.int16)
+    bval = np.empty(B, bool)
+    L.pcm16x0_decode_blocks(
+        w.ctypes.data, c.ctypes.data, sh.ctypes.data, eo.ctypes.data, B,
+        int(ofs), int(bool(en_p)), int(bool(force_ecc)),
+        words.ctypes.data, valid.ctypes.data, wcrc.ctypes.data,
+        state.ctypes.data, stage.ctypes.data, samples.ctypes.data,
+        bval.ctypes.data)
+    return (words, valid, wcrc, state, stage, samples, bval)
+
+
+def pcm16x0_decode_blocks_rows(sub_words, sub_crc, rows, even_order,
+                               en_p, force_ecc):
+    """Row-mapped native PCM-16x0 block decode: rows [B, 3] explicit
+    subline indices (one call covers every padding of an EI sweep)."""
+    L = _load()
+    B = len(rows)
+    w = np.ascontiguousarray(sub_words, np.int32)
+    c = np.ascontiguousarray(sub_crc, np.uint8)
+    r = np.ascontiguousarray(rows, np.int64)
+    if B and (int(r.min()) < 0 or int(r.max()) >= w.shape[0]):
+        raise IndexError(
+            f"block rows out of range for {w.shape[0]} sublines")
+    eo = np.ascontiguousarray(even_order, np.uint8)
+    words = np.empty((B, 3, 3), np.int32)
+    valid = np.empty((B, 3, 3), np.uint8)
+    wcrc = np.empty((B, 3, 3), np.uint8)
+    state = np.empty((B, 3), np.int32)
+    stage = np.empty((B, 3), np.int32)
+    samples = np.empty((B, 3, 2), np.int16)
+    bval = np.empty(B, np.uint8)
+    L.pcm16x0_decode_blocks_rows(
+        w.ctypes.data, c.ctypes.data, r.ctypes.data, eo.ctypes.data, B,
+        int(bool(en_p)), int(bool(force_ecc)),
+        words.ctypes.data, valid.ctypes.data, wcrc.ctypes.data,
+        state.ctypes.data, stage.ctypes.data, samples.ctypes.data,
+        bval.ctypes.data)
+    return (words, valid, wcrc, state, stage, samples, bval)
+
+
+def linegrid_coord_sweep(pixels_line, ds, de, ref, black, white, fmt,
+                         part, d1s, d2s, hyst_limit, shift_limit):
+    """Native coordinate-delta sweep through the readPCMdata grid.
+
+    fmt: "pcm1" or "pcm16x0" (with part 0..2). Returns None or
+    (words list incl. read CRC, (d1, d2, depth, shift))."""
+    L = _load()
+    px = np.ascontiguousarray(pixels_line, np.uint8)
+    a1 = np.ascontiguousarray(d1s, np.int32)
+    a2 = np.ascontiguousarray(d2s, np.int32)
+    words = np.zeros(8, np.int32)
+    sel = np.zeros(4, np.int32)
+    found = L.linegrid_coord_sweep(
+        px.ctypes.data, len(px), int(ds), int(de), int(ref), int(black),
+        int(white), 0 if fmt == "pcm1" else 1, int(part),
+        a1.ctypes.data, len(a1), a2.ctypes.data, len(a2),
+        int(hyst_limit), int(shift_limit), words.ctypes.data,
+        sel.ctypes.data)
+    if not found:
+        return None
+    n = 7 if fmt == "pcm1" else 4
+    return [int(w) for w in words[:n]], tuple(int(x) for x in sel)
+
+
+
+def pcm_crc_rows(words, fmt):
+    """Native batch row CRC for PCM-1 / PCM-16x0 stores -> uint16 [N]."""
+    L = _load()
+    n_words, word_bits, inv = (6, 13, 1) if fmt == "pcm1" else (3, 16, 0)
+    w = np.ascontiguousarray(words, np.int32)
+    out = np.empty(w.shape[0], np.uint16)
+    L.pcm_crc_rows(w.ctypes.data, w.shape[0], n_words, word_bits, inv,
+                   out.ctypes.data)
+    return out
+
+
+# pcm16x0_steady_frame record indices (mirror of the C layout).
+P16_REC_N = 48
+(P16_STATUS, P16_TRIM, P16_SPLIT, P16_CTRL, P16_QLEN, P16_BTOTAL,
+ P16_CNT, P16_OUT, P16_PAD) = 0, 1, 15, 28, 36, 38, 39, 43, 45
+
+
+def pcm16x0_steady_frame(store, frame_no, order_tff, en_p):
+    """One-call steady SI frame (pcm16x0_steady_frame): trim, split,
+    false-positive prescan, the zero-padding fast path, queue assembly,
+    control-bit tally and the output block stream.  Returns (rc, rec,
+    samples [N,2] i16, wvalid [N,2], wfixed [N,2], bok [N]) — rc != 0
+    means a bail (file tag or the pad-0 fast path failed) and the caller
+    runs the unchanged frame logic."""
+    L = _load()
+    crcv = store.crc_valid_ignore_forced()
+    cap = 2 * (735 + 105)
+    rec = np.zeros(P16_REC_N, np.int64)
+    samples = np.empty((cap, 2), np.int16)
+    wv = np.empty((cap, 2), bool)
+    wf = np.empty((cap, 2), bool)
+    bok = np.empty(cap, bool)
+    rc = L.pcm16x0_steady_frame(
+        store.words.ctypes.data, _as_u8(crcv).ctypes.data,
+        _as_u8(store.forced_bad).ctypes.data,
+        store.frame_number.ctypes.data, store.line_number.ctypes.data,
+        store.line_part.ctypes.data, store.service.ctypes.data,
+        _as_u8(store.control_bit).ctypes.data,
+        _as_u8(store.bw_set).ctypes.data,
+        store.picked_left.ctypes.data, store.picked_right.ctypes.data,
+        len(store), int(frame_no), int(bool(order_tff)), int(bool(en_p)),
+        rec.ctypes.data, samples.ctypes.data, wv.ctypes.data,
+        wf.ctypes.data, bok.ctypes.data)
+    return int(rc), rec, samples, wv, wf, bok
+
+
+
+P1_REC_N = 32
+P1_TRIM, P1_DATA, P1_REFS, P1_CNT = 1, 15, 19, 21
+
+
+def pcm1_steady_frame(store, frame_no, order_tff, auto_offset,
+                      preset_odd, preset_even):
+    """One-call steady PCM-1 frame (pcm1_steady_frame): trim scan,
+    field split, padding math and both field deinterleaves; outputs two
+    735-row fields in emission order.  rc != 0 = bail (file tags); the
+    caller excludes header frames before calling."""
+    L = _load()
+    rec = np.zeros(P1_REC_N, np.int64)
+    N = 2 * 735
+    samples = np.empty((N, 2), np.int16)
+    wv = np.empty((N, 2), bool)
+    bok = np.empty(N, bool)
+    rc = L.pcm1_steady_frame(
+        store.words.ctypes.data,
+        _as_u8(store.crc_valid_ignore_forced()).ctypes.data,
+        _as_u8(store.forced_bad).ctypes.data,
+        store.frame_number.ctypes.data, store.line_number.ctypes.data,
+        store.service.ctypes.data, _as_u8(store.bw_set).ctypes.data,
+        store.ref_level.ctypes.data,
+        len(store), int(frame_no), int(bool(order_tff)),
+        int(bool(auto_offset)), int(preset_odd), int(preset_even),
+        samples.ctypes.data, wv.ctypes.data, bok.ctypes.data,
+        rec.ctypes.data)
+    return int(rc), rec, samples, wv, bok
+
+
+def pcm1_field_deint(sub_left, sub_right, sub_valid):
+    """One-pass PCM-1 field deinterleave + companding + stats ->
+    (samples [735,2] i16, valid [735,2], block_ok [735],
+    bad_blocks, samples_drop); twin of pcm1_deint.deinterleave_field +
+    expand_sample (differential-tested)."""
+    L = _load()
+    N = 735
+    sl = np.ascontiguousarray(sub_left, np.int64)
+    sr = np.ascontiguousarray(sub_right, np.int64)
+    sv = _as_u8(sub_valid)
+    samples = np.empty((N, 2), np.int16)
+    valid2 = np.empty((N, 2), bool)
+    bok = np.empty(N, bool)
+    counters = np.empty(2, np.int64)
+    L.pcm1_field_deint(sl.ctypes.data, sr.ctypes.data, sv.ctypes.data,
+                       samples.ctypes.data, valid2.ctypes.data,
+                       bok.ctypes.data, counters.ctypes.data)
+    return samples, valid2, bok, int(counters[0]), int(counters[1])
+
+
+def pcm16x0_block_flags(valid, state, stage, samples, bval):
+    """Packed per-block flags + output-pass counters from a decode's
+    results -> (flags [B] u8, counters [4] i64); numpy twins:
+    _si_seam_flags / _stream_blocks reduces (differential-tested)."""
+    L = _load()
+    B = len(bval)
+    flags = np.empty(B, np.uint8)
+    counters = np.empty(4, np.int64)
+    L.pcm16x0_block_flags(
+        _as_u8(valid).ctypes.data,
+        np.ascontiguousarray(state, np.int32).ctypes.data,
+        np.ascontiguousarray(stage, np.int32).ctypes.data,
+        np.ascontiguousarray(samples, np.int16).ctypes.data,
+        _as_u8(bval).ctypes.data, B,
+        flags.ctypes.data, counters.ctypes.data)
+    return flags, counters
+
+
+def pcm16x0_burst(flags, max_silence, max_unch, broken_as_run):
+    """Native _burst_core twin -> (vmax, smax, umax, brk)."""
+    L = _load()
+    f = _as_u8(flags)
+    out = np.empty(4, np.int32)
+    L.pcm16x0_burst_stats(f.ctypes.data, len(f), int(max_silence),
+                          int(max_unch), int(bool(broken_as_run)),
+                          out.ctypes.data)
+    return int(out[0]), int(out[1]), int(out[2]), int(out[3])
+
+
+
+def pcm_pick_cut_line(words, crc_read, start, stop, width, fmt, part,
+                      left_pick, right_pick):
+    """Native Bit Picker on one read line.  Returns None or
+    (words, crc, (picked_l, picked_r))."""
+    L = _load()
+    n = 6 if fmt == "pcm1" else 3
+    w_in = np.zeros(8, np.int32)
+    w_in[:n] = np.asarray(words[:n], np.int32)
+    w_in[n] = int(crc_read)
+    w_out = np.zeros(8, np.int32)
+    picked = np.zeros(2, np.int32)
+    ok = L.pcm_pick_cut_line(
+        w_in.ctypes.data, int(width), int(start), int(stop),
+        0 if fmt == "pcm1" else 1, int(part), int(left_pick),
+        int(right_pick), w_out.ctypes.data, picked.ctypes.data)
+    if not ok:
+        return None
+    return ([int(x) for x in w_out[:n]], int(w_out[n]),
+            (int(picked[0]), int(picked[1])))
+
+
+def pcm_search_coordinates(pixels_line, ds, de, ref, black, white, fmt,
+                           part, step, max_ofs, shift_limit, left_pick,
+                           right_pick):
+    """Native coordinate SEARCH (searchPCM1Data :4123 twin of
+    line_decode_np.search_coordinates's grid): returns the picked entry
+    dict (result/crc/hyst/shift/start/stop/words/picked) or None."""
+    L = _load()
+    px = np.ascontiguousarray(pixels_line, np.uint8)
+    out = np.zeros(16, np.int64)
+    found = L.pcm_search_coordinates(
+        px.ctypes.data, len(px), int(ds), int(de), int(ref), int(black),
+        int(white), 0 if fmt == "pcm1" else 1, int(part), int(step),
+        int(max_ofs), int(shift_limit), int(left_pick), int(right_pick),
+        out.ctypes.data)
+    if not found:
+        return None
+    n = 6 if fmt == "pcm1" else 3
+    return dict(result=True, crc=int(out[3]), hyst=int(out[4]),
+                shift=int(out[5]), start=int(out[1]), stop=int(out[2]),
+                words=[int(w) for w in out[8:8 + n]],
+                picked=(int(out[6]), int(out[7])))
+
+
+
+def pcm1_binarize_frames(pixels, coords, ref, black, white, shift_limit,
+                         hyst_limit=0):
+    """Native PCM-1 frame decode (twin of binarize.pcm1_frame_decode).
+
+    pixels [F, L, W] uint8 (any strides, contiguous rows); coords [F,2];
+    ref/black/white [F].  Returns (words [F,L,6] i64, crc [F,L] i64,
+    valid [F,L] bool)."""
+    L = _load()
+    F, Ln, W = pixels.shape
+    if pixels.strides[2] != 1:
+        pixels = np.ascontiguousarray(pixels)
+    cds = np.ascontiguousarray(coords, np.int32)
+    rf = np.ascontiguousarray(np.broadcast_to(ref, (F,)), np.int32)
+    bk = np.ascontiguousarray(np.broadcast_to(black, (F,)), np.int32)
+    wt = np.ascontiguousarray(np.broadcast_to(white, (F,)), np.int32)
+    words = np.empty((F, Ln, 6), np.int32)
+    crc = np.empty((F, Ln), np.int32)
+    valid = np.empty((F, Ln), np.uint8)
+    L.pcm1_binarize_frames(
+        pixels.ctypes.data, F, Ln, W, pixels.strides[0],
+        pixels.strides[1], cds.ctypes.data, rf.ctypes.data,
+        bk.ctypes.data, wt.ctypes.data, int(hyst_limit),
+        int(shift_limit),
+        words.ctypes.data, crc.ctypes.data, valid.ctypes.data)
+    return (words.astype(np.int64), crc.astype(np.int64),
+            valid.astype(bool))
+
+
+def pcm16x0_binarize_frames(pixels, coords, ref, black, white,
+                            shift_limit, hyst_limit=0):
+    """Native PCM-16x0 frame decode (twin of
+    binarize.pcm16x0_frame_decode).  Returns (words [F,L,3,3] i64,
+    crc [F,L,3] i64, valid [F,L,3] bool, ctrl [F,L] bool)."""
+    L = _load()
+    F, Ln, W = pixels.shape
+    if pixels.strides[2] != 1:
+        pixels = np.ascontiguousarray(pixels)
+    cds = np.ascontiguousarray(coords, np.int32)
+    rf = np.ascontiguousarray(np.broadcast_to(ref, (F,)), np.int32)
+    bk = np.ascontiguousarray(np.broadcast_to(black, (F,)), np.int32)
+    wt = np.ascontiguousarray(np.broadcast_to(white, (F,)), np.int32)
+    words = np.empty((F, Ln, 3, 3), np.int32)
+    crc = np.empty((F, Ln, 3), np.int32)
+    valid = np.empty((F, Ln, 3), np.uint8)
+    ctrl = np.empty((F, Ln), np.uint8)
+    L.pcm16x0_binarize_frames(
+        pixels.ctypes.data, F, Ln, W, pixels.strides[0],
+        pixels.strides[1], cds.ctypes.data, rf.ctypes.data,
+        bk.ctypes.data, wt.ctypes.data, int(hyst_limit),
+        int(shift_limit),
+        words.ctypes.data, crc.ctypes.data, valid.ctypes.data,
+        ctrl.ctypes.data)
+    return (words.astype(np.int64), crc.astype(np.int64),
+            valid.astype(bool), ctrl.astype(bool))

@@ -18,10 +18,12 @@ core is available (the JAX package's rule).  Level sweeps run on the
 device under every backend (V2DDriver.ref_sweep uses it either way).
 Per-stage wall time is accumulated in `stage_t`.
 
-Port of sdvpcmdecoder_tpu/pipeline/batch_driver.py for STC-007 (M2
-through mode_m2): fmt="auto", PCM-1 and PCM-16x0 wait for the PCM slice
-(ROADMAP Queue 1 item 6).  The driver's `device` and `use_kernel` reach
-the V2D driver and the stitcher's device backend.
+Port of sdvpcmdecoder_tpu/pipeline/batch_driver.py: STC-007 (M2
+through mode_m2), PCM-1, PCM-16x0 (SI, EI as "pcm1630") and fmt="auto".
+The driver's `device` and `use_kernel` reach the V2D driver and the
+stitcher's device backend; PCM-1/16x0 jobs run the host round loop and
+their PCMFrameDriver the trial grid on `device` ("auto" = "tpu" on a
+CUDA device, as for STC-007).
 """
 from __future__ import annotations
 
@@ -85,10 +87,16 @@ class CaptureJob:
 
 
 class BatchDecoder:
-    """Decode several STC-007 captures concurrently.
+    """Decode several captures concurrently.
 
-    The JAX package's fmt selects the decode family per run; here only
-    "stc007" is ported (M2 through mode_m2)."""
+    fmt selects the decode family per run ("stc007", "pcm1", "pcm16x0",
+    "pcm1630") — the reference routes one user-set pcm_type the same way
+    (videotodigital.h:125-126).  fmt="auto" probes every capture's format
+    signature (pipeline/probe.py, BASELINE config 5 "auto format
+    search") and requires consensus, since one run drives one decode
+    family.  PCM-1/16x0 jobs run the host round loop; their
+    PCMFrameDriver runs the trial grid on the backend resolved here
+    (on `device` unless it is "native")."""
 
     def __init__(self, jobs, lines_per_field=294, hyst_limit=2,
                  shift_limit=1, mask_mode=ap.DROP_INTER_LIN_WORD,
@@ -96,16 +104,22 @@ class BatchDecoder:
                  ref_sweep_fallback=False, checkpoint=False,
                  backend="auto", per_line_agc=False, fmt="stc007",
                  normal_sweep_prescan=False, seam_backend="auto",
-                 mode_m2=False, preset_video=None,
+                 refine=True, mode_m2=False, preset_video=None,
                  preset_order=None, preset_resolution=None,
                  preset_sample_rate=None, device="cuda", use_kernel=None):
         self.jobs = [CaptureJob(path=p, out_path=o) for p, o in jobs]
         self.frames_per_round = frames_per_round
         self.checkpoint = checkpoint
-        if fmt != "stc007":
-            raise NotImplementedError(
-                f"fmt={fmt!r}: the format probe, PCM-1 and PCM-16x0 are not "
-                "ported yet (ROADMAP Queue 1 item 6)")
+        if fmt == "auto":
+            from . import probe
+            guesses = {j.path: probe.probe_capture(j.path)[0]
+                       for j in self.jobs}
+            kinds = set(guesses.values())
+            if len(kinds) != 1 or None in kinds:
+                raise ValueError(
+                    f"format probe disagrees across captures: {guesses}; "
+                    "pass fmt explicitly or split the batch")
+            fmt = kinds.pop()
         self.fmt = fmt
         if backend == "auto":
             import os
@@ -120,6 +134,9 @@ class BatchDecoder:
             # Explicit native without the C++ core: degrade to the device
             # backend instead of failing mid-decode.
             backend = "tpu"
+        line_backend = backend   # what the per-frame binarizer runs on
+        if fmt != "stc007":
+            backend = "native"  # round loop; the driver splits internally
         self.backend = backend
         self.stage_t = defaultdict(float)
         for j in self.jobs:
@@ -138,21 +155,43 @@ class BatchDecoder:
             preset_video = st.VID_PAL if lines_per_field > 260 \
                 else st.VID_NTSC
         for j in self.jobs:
-            j.driver = v2d.V2DDriver(
-                hyst_limit=hyst_limit, shift_limit=shift_limit,
-                ref_sweep=ref_sweep,
-                ref_sweep_fallback=ref_sweep_fallback,
-                normal_sweep_prescan=normal_sweep_prescan,
-                per_line_agc=per_line_agc, m2=mode_m2, device=device,
-                use_kernel=use_kernel)
-            j.stitcher = st.STC007Stitcher(
-                preset_video=preset_video,
-                mode_m2=mode_m2, auto_m2=not mode_m2,
-                preset_order=(st.ORDER_UNK if preset_order is None
-                              else preset_order),
-                preset_resolution=preset_resolution,
-                preset_sample_rate=preset_sample_rate or 0,
-                seam_backend=seam_backend, device=device)
+            if fmt == "stc007":
+                j.driver = v2d.V2DDriver(
+                    hyst_limit=hyst_limit, shift_limit=shift_limit,
+                    ref_sweep=ref_sweep,
+                    ref_sweep_fallback=ref_sweep_fallback,
+                    normal_sweep_prescan=normal_sweep_prescan,
+                    per_line_agc=per_line_agc, m2=mode_m2, device=device,
+                    use_kernel=use_kernel)
+                j.stitcher = st.STC007Stitcher(
+                    preset_video=preset_video,
+                    mode_m2=mode_m2, auto_m2=not mode_m2,
+                    preset_order=(st.ORDER_UNK if preset_order is None
+                                  else preset_order),
+                    preset_resolution=preset_resolution,
+                    preset_sample_rate=preset_sample_rate or 0,
+                    seam_backend=seam_backend, device=device)
+            elif fmt == "pcm1":
+                from . import stitcher_pcm1 as sp1
+                from . import v2d_other
+                j.driver = v2d_other.PCMFrameDriver(
+                    "pcm1", shift_limit=shift_limit,
+                    hyst_limit=hyst_limit, backend=line_backend,
+                    refine=refine, device=device)
+                j.stitcher = sp1.PCM1Stitcher()
+            elif fmt in ("pcm16x0", "pcm1630"):
+                from . import stitcher_pcm16x0 as sp16
+                from . import v2d_other
+                j.driver = v2d_other.PCMFrameDriver(
+                    "pcm16x0", shift_limit=shift_limit,
+                    hyst_limit=hyst_limit, backend=line_backend,
+                    refine=refine, device=device)
+                j.stitcher = sp16.PCM16X0Stitcher(
+                    fmt=sp16.FORMAT_EI if fmt == "pcm1630"
+                    else sp16.FORMAT_SI,
+                    auto_fmt=fmt == "pcm16x0")
+            else:
+                raise ValueError(f"unknown fmt {fmt!r}")
             j.audio = ap.AudioProcessor(mask_mode=mask_mode)
             if checkpoint:
                 self._try_resume(j)
@@ -234,6 +273,51 @@ class BatchDecoder:
             with self._stage("ckpt"):
                 self._save_checkpoint(job)
 
+    def _build_stores(self, j: CaptureJob, results, nums):
+        if self.fmt != "stc007":
+            return self._build_stores_other(j, results, nums)
+        return self._build_stores_stc007(j, results, nums)
+
+    def _build_stores_other(self, j: CaptureJob, results, nums):
+        """PCM-1 / PCM-16x0 stores (None frames are skipped — the
+        single-frame stitchers carry no cross-frame interleave, matching
+        the CLI path)."""
+        stores = []
+        L = len(nums)
+        for res in results:
+            j.frame_no += 1
+            if res is None:
+                j.stats.frames_no_pcm += 1
+                continue
+            if self.fmt == "pcm1":
+                from . import stitcher_pcm1 as sp1
+                store = sp1.PCM1LineStore.from_decoded(
+                    res.words, res.crc_read, np.full(L, j.frame_no),
+                    nums, ref_level=np.full(L, res.ref_level),
+                    valid=res.valid)
+                tag_cls = sp1.PCM1LineStore
+                srv_new = sp1.SRV_NEW_FILE
+            else:
+                from . import stitcher_pcm16x0 as sp16
+                store = sp16.PCM16X0LineStore.from_decoded(
+                    res.words, res.crc_read, np.full(L * 3, j.frame_no),
+                    np.repeat(nums, 3), np.tile(np.arange(3), L),
+                    control_bit=np.repeat(res.ctrl, 3),
+                    picked_left=res.picked_left,
+                    picked_right=res.picked_right, valid=res.valid)
+                tag_cls = sp16.PCM16X0LineStore
+                srv_new = sp16.SRV_NEW_FILE
+            j.stats.lines_total += len(res.valid)
+            j.stats.lines_valid += int(np.asarray(res.valid).sum())
+            if j.first:
+                tag = tag_cls(1)
+                tag.service[0] = srv_new
+                tag.frame_number[0] = j.frame_no
+                store = tag_cls.concat([tag, store])
+                j.first = False
+            stores.append(store)
+        return stores
+
     def _build_stores_stc007(self, j: CaptureJob, results, nums):
         """FrameDecodeResults (or Nones) -> per-frame LineStores."""
         stores = []
@@ -301,10 +385,16 @@ class BatchDecoder:
                     with self._stage("prescan"):
                         prep = j.driver.prepare_frames(lines_b, perm=perm)
                     with self._stage("binarize"):
-                        results = j.driver.decode_prepared_host(
-                            lines_b, prep, perm=perm)
+                        if self.fmt == "stc007":
+                            results = j.driver.decode_prepared_host(
+                                lines_b, prep, perm=perm)
+                        elif prep["usable"].any():
+                            results = j.driver.decode_prepared(
+                                lines_b, prep, perm=perm)
+                        else:
+                            results = [None] * lines_b.shape[0]
                     with self._stage("assemble"):
-                        stores = self._build_stores_stc007(j, results, nums)
+                        stores = self._build_stores(j, results, nums)
                     self._stitch_and_write(j, stores)
             if j.eof and not j.done:
                 self._stitch_and_write(j, [], finish=True)
@@ -431,7 +521,7 @@ class BatchDecoder:
         for (j, split, lines_b, _), results in zip(round_work, per_job):
             nums = split[0][1]
             with self._stage("assemble"):
-                stores = self._build_stores_stc007(j, results, nums)
+                stores = self._build_stores(j, results, nums)
             futures.append(self.pool.submit(self._stitch_and_write, j,
                                             stores))
         for f in futures:

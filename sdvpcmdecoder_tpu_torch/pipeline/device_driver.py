@@ -22,7 +22,8 @@ The JAX package's device plumbing maps as: device_put + block_until_ready
 on; copy_to_host_async -> `HostCopy`; the jitted prescan gather ->
 `px[:, idx, :]` with idx on the device; jnp.take -> index_select; the
 round call -> `run_round` over `RoundState`, the state one round hands
-the next.  The PCM drivers (device_pcm) wait for the PCM slice.
+the next.  The PCM-1/16x0 driver (pipeline/device_pcm) shares the
+staging skeleton, StagedDeviceDecoder.
 
 Reference scope: the full doFrameReassemble chain
 (stc007datastitcher.cpp:7250) with findPadding/tryPadding seam scoring
@@ -50,7 +51,7 @@ def _gather_sample(px, idx):
 
 
 class StagedDeviceDecoder(batch_driver.BatchDecoder):
-    """Shared skeleton of the chip-resident drivers (STC-007, later PCM):
+    """Shared skeleton of the chip-resident drivers (STC-007, PCM-1/16x0):
     bounded-chunk device staging, the capture round-robin visit loop
     (complete pending round → restage at the chunk edge → dispatch the
     next round), and the rounds-never-straddle-a-chunk rounding of

@@ -11,14 +11,13 @@ with the reference's color coding (palette renderpcm.h:49-67):
   magenta= BROKEN blocks
   white  = STC-007 markers / block boundaries
 
-Port of the STC-007 part of sdvpcmdecoder_tpu/pipeline/render.py (numpy
-only); the PCM-1 and PCM-16x0 line renderers come with those formats.
+Port of sdvpcmdecoder_tpu/pipeline/render.py (numpy only).
 """
 from __future__ import annotations
 
 import numpy as np
 
-from ..formats import stc007
+from ..formats import pcm1, pcm16x0, stc007
 from ..utils.host import host_call
 
 # Palette (renderpcm.h:49-67), (bit0, bit1) RGB pairs.
@@ -164,3 +163,53 @@ def read_ppm(path):
         fh.readline()
         data = np.frombuffer(fh.read(W * H * 3), np.uint8)
     return data.reshape(H, W, 3)
+
+
+PPB_PCM1LINE = 7      # renderpcm.h:84-92 (RENDER_PPB_PCM1)
+PPB_PCM16X0LINE = 3   # (RENDER_PPB_PCM16X0: 193 bits/line)
+
+
+def _render_bit_lines(full, valid, fixed=None, ppb=4, marker_mask=None):
+    """Shared bit-matrix renderer: full [N, Wb] bits -> RGB image."""
+    N, Wb = full.shape
+    pal0 = np.zeros((N, 3), np.uint8)
+    pal1 = np.zeros((N, 3), np.uint8)
+    valid = np.asarray(valid, bool)
+    pal0[~valid], pal1[~valid] = PAL_RED
+    pal0[valid], pal1[valid] = PAL_GRAY
+    if fixed is not None:
+        f = np.asarray(fixed, bool)
+        pal0[f], pal1[f] = PAL_YELLOW
+    cells = np.where(full[..., None].astype(bool), pal1[:, None, :],
+                     pal0[:, None, :])
+    if marker_mask is not None:
+        lit = full.astype(bool) & marker_mask[None, :]
+        cells = np.where(lit[..., None],
+                         np.asarray(MARKER_WHITE, np.uint8), cells)
+    return np.repeat(cells, ppb, axis=1)
+
+
+def render_pcm1_lines(words, crcs, valid, fixed=None, ppb=PPB_PCM1LINE):
+    """Render binarized PCM-1 lines [N, 6]+[N] -> RGB (94-bit layout).
+
+    valid=gray, invalid=red, bit-picked/refined=yellow (renderpcm
+    palette); PCM-1 has no markers."""
+    bits = np.asarray(pcm1.words_to_data_bits(np.asarray(words),
+                                              np.asarray(crcs), xp=np))
+    return _render_bit_lines(bits, valid, fixed, ppb)
+
+
+def render_pcm16x0_sublines(words, crcs, valid, control_bit=None,
+                            fixed=None, ppb=PPB_PCM16X0LINE):
+    """Render PCM-16x0 SUBLINES [S, 3]+[S] -> RGB (64 bits + the control
+    bit column drawn white when set)."""
+    bits = np.asarray(pcm16x0.words_to_data_bits(np.asarray(words),
+                                                 np.asarray(crcs), xp=np))
+    if control_bit is not None:
+        cb = np.asarray(control_bit, bool)[:, None].astype(bits.dtype)
+        bits = np.concatenate([bits, cb], axis=1)
+        mark = np.zeros(bits.shape[1], bool)
+        mark[-1] = True
+    else:
+        mark = None
+    return _render_bit_lines(bits, valid, fixed, ppb, marker_mask=mark)

@@ -229,8 +229,32 @@ def test_backend_selection_rules(tmp_path, monkeypatch):
                       device="cpu")[0] == "tpu"
     assert backend_of(tbd.BatchDecoder, device="cpu", workers=1)[1] == \
         "_InlineExecutor"
-    with pytest.raises(NotImplementedError):
-        tbd.BatchDecoder(jobs, fmt="pcm1", device="cpu")
+    # PCM-1/16x0: the round loop is the host's (as in JAX); "auto" puts
+    # the PCMFrameDriver's trial grid on a CUDA device, and JAX's rule
+    # (native when the core is there) holds only for device="cpu".
+    monkeypatch.undo()
+    from sdvpcmdecoder_tpu_torch.pipeline import v2d_other
+    for fmt in ("pcm1", "pcm16x0", "pcm1630"):
+        for dev, want in (("cuda", "tpu"), ("cuda:0", "tpu"),
+                          ("cpu", "native")):
+            dec = tbd.BatchDecoder(jobs, fmt=fmt, device=dev)
+            for j in dec.jobs:
+                j.reader.close()
+            assert dec.backend == "native"
+            assert dec.jobs[0].driver.backend == want, (fmt, dev)
+            assert dec.jobs[0].driver.device == torch.device(dev)
+        dec = tbd.BatchDecoder(jobs, fmt=fmt, backend="native",
+                               device="cuda")
+        dec.jobs[0].reader.close()
+        assert dec.jobs[0].driver.backend == "native"
+    for fmt in ("pcm1", "pcm16x0"):
+        assert v2d_other.PCMFrameDriver(fmt).backend == "tpu"
+        assert v2d_other.PCMFrameDriver(fmt, device="cuda:0").backend \
+            == "tpu"
+        assert v2d_other.PCMFrameDriver(fmt, device="cpu").backend \
+            == "native"
+        assert v2d_other.PCMFrameDriver(fmt, backend="native").backend \
+            == "native"
 
 
 def test_run_dispatches_on_backend(tmp_path, monkeypatch):

@@ -301,8 +301,8 @@ def test_device_is_required_and_streaming_loops_wait(tmp_path):
         tdd.DeviceBatchDecoder(jobs)
     stats = tbd.BatchDecoder(jobs, device="cpu").run()   # streams now
     assert stats[cap].lines_valid == 2 * 2 * PAL
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tbd.BatchDecoder(jobs, fmt="pcm1", device="cpu")
+    with pytest.raises(ValueError, match="unknown fmt"):
+        tbd.BatchDecoder(jobs, fmt="arvid", device="cpu")
     dec = tdd.DeviceBatchDecoder(jobs, device="cpu")
     assert tuple(dec.jobs[0].px_dev.shape) == (2, 2 * PAL, chip_smoke.WIDTH)
     assert dec.use_kernel is False and dec.tables.synd_table.device.type \

@@ -408,3 +408,68 @@ def test_cli_on_the_card_matches_the_golden_hash(cuda, tmp_path):
                      backend] + extra) == 0
         assert hashlib.sha256(open(out, "rb").read()).hexdigest() == \
             chip_smoke.GOLDEN_CLI_SHA256["noisy"], (quality, backend)
+
+
+@pytest.mark.parametrize("fmt,sigma", [("pcm1", 0.0), ("pcm1", 14.0),
+                                       ("pcm16x0", 0.0), ("pcm16x0", 10.0)])
+@pytest.mark.parametrize("hl,sl", [(2, 1), (4, 2)])
+def test_pcm_grid_on_the_card_equals_the_cpu(cuda, tmp_path, fmt, sigma, hl,
+                                             sl):
+    """pcm1_frame_decode / pcm16x0_frame_decode (plain torch, no hand
+    kernel) on CUDA tensors give the CPU's outputs, dtypes included, and
+    launch no K1."""
+    import chip_smoke
+    path = str(tmp_path / "c.y4m")
+    if sigma:
+        chip_smoke.write_pcm_noisy(path, fmt, 4, 3, sigma)
+    elif fmt == "pcm1":
+        chip_smoke.write_pcm1_capture(path, n_frames=4, seed=3)
+    else:
+        chip_smoke.write_pcm16x0_capture(path, n_frames=4, seed=3)
+    inputs = chip_smoke.pcm_grid_inputs(path, fmt, cuda)
+    fn = chip_smoke.pcm_frame_decode(fmt)
+    before = fb.stc007_fused_decode_frames.launches
+    got = fn(*inputs, shift_limit=sl, hyst_limit=hl)
+    want = fn(*(t.cpu() for t in inputs), shift_limit=sl, hyst_limit=hl)
+    assert fb.stc007_fused_decode_frames.launches == before
+    assert len(got) == len(want)
+    for g, e in zip(got, want):
+        assert g.device.type == "cuda"
+        assert g.dtype == e.dtype and torch.equal(g.cpu(), e)
+    assert want[2].any()
+
+
+@pytest.mark.parametrize("fmt,sigma", [("pcm1", 0.0), ("pcm1", 30.0),
+                                       ("pcm16x0", 26.0), ("pcm1630", 0.0)])
+def test_device_pcm_driver_on_the_card_matches_native(cuda, tmp_path, fmt,
+                                                      sigma):
+    """DevicePCMBatchDecoder on the card writes the WAVs of the native
+    BatchDecoder; the noisy captures send frames back for refinement."""
+    import chip_smoke
+    from sdvpcmdecoder_tpu_torch.pipeline import batch_driver as bd
+    from sdvpcmdecoder_tpu_torch.pipeline import device_pcm
+    writers = {"pcm1": chip_smoke.write_pcm1_capture,
+               "pcm16x0": chip_smoke.write_pcm16x0_capture,
+               "pcm1630": chip_smoke.write_pcm1630_capture}
+    caps = []
+    for i in range(2):
+        path = str(tmp_path / f"c{i}.y4m")
+        if sigma:
+            chip_smoke.write_pcm_noisy(path, fmt, 6, 40 + i, sigma)
+        else:
+            writers[fmt](path, n_frames=4, seed=40 + i)
+        caps.append(path)
+    kw = dict(fmt=fmt, hyst_limit=0, shift_limit=1, frames_per_round=3)
+    wavs = {}
+    for name, cls, extra in (
+            ("device", device_pcm.DevicePCMBatchDecoder, dict(device=cuda)),
+            ("native", bd.BatchDecoder, dict(backend="native",
+                                             device=cuda))):
+        outs = [str(tmp_path / f"{name}{i}.wav") for i in range(2)]
+        dec = cls(list(zip(caps, outs)), **kw, **extra)
+        dec.run()
+        wavs[name] = [open(o, "rb").read() for o in outs]
+        if name == "device" and sigma:
+            assert dec.fetched_frames > 0
+    assert wavs["device"] == wavs["native"]
+    assert all(len(w) > 1000 for w in wavs["device"])

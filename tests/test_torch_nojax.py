@@ -116,7 +116,27 @@ with tempfile.TemporaryDirectory() as tmp:
                          "cpu"]) == 0
         same = open(f"{tmp}/cli.wav", "rb").read() == wavs["tpu"]
         assert same or quality == "insane", (backend, quality)
-    assert cli_main([cap, "--format", "pcm1", "--device", "cpu"]) == 2
+    assert cli_main([cap, "--format", "arvid", "--device", "cpu"]) == 2
+
+# PCM-1 / PCM-16x0: the probe, BatchDecoder, the chip-resident PCM driver
+# and the CLI.
+from sdvpcmdecoder_tpu_torch.pipeline import device_pcm, probe
+with tempfile.TemporaryDirectory() as tmp:
+    p1 = chip_smoke.write_pcm1_capture(f"{tmp}/p1.y4m", n_frames=2, seed=31)
+    p16 = chip_smoke.write_pcm16x0_capture(f"{tmp}/p16.y4m", n_frames=2,
+                                           seed=32)
+    assert probe.probe_capture(p1)[0] == "pcm1"
+    assert probe.probe_capture(p16)[0] == "pcm16x0"
+    kw = dict(fmt="pcm16x0", hyst_limit=0, shift_limit=1,
+              frames_per_round=2, device="cpu")
+    bd.BatchDecoder([(p16, f"{tmp}/b16.wav")], **kw).run()
+    device_pcm.DevicePCMBatchDecoder([(p16, f"{tmp}/d16.wav")], **kw).run()
+    b16 = open(f"{tmp}/b16.wav", "rb").read()
+    assert b16 == open(f"{tmp}/d16.wav", "rb").read() and len(b16) > 1000
+    for fmt, cap, backend in (("pcm1", p1, "tpu"), ("auto", p1, "native"),
+                              ("pcm16x0", p16, "device")):
+        assert cli_main([cap, "-o", f"{tmp}/c.wav", "--format", fmt,
+                         "--backend", backend, "--device", "cpu"]) == 0
 assert not any(m == "jax" or m.startswith(("jax.", "sdvpcmdecoder_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("SLICE_OK")
@@ -143,7 +163,12 @@ def test_no_source_imports_jax_or_the_jax_package():
             "pipeline/ingest.py", "utils/stats.py", "utils/resume.py",
             "utils/host.py", "__main__.py", "pipeline/full_decoder.py",
             "pipeline/live_audio.py", "pipeline/render.py",
-            "utils/dump.py"} <= names
+            "utils/dump.py", "formats/pcm1.py", "formats/pcm16x0.py",
+            "ops/pcm1_deint.py", "ops/pcm16x0_deint.py",
+            "ops/line_decode_np.py", "ops/device_pcm.py",
+            "pipeline/stitcher_pcm1.py", "pipeline/stitcher_pcm16x0.py",
+            "pipeline/v2d_other.py", "pipeline/probe.py",
+            "pipeline/device_pcm.py"} <= names
     for path in files:
         text = path.read_text()
         assert "import jax" not in text, path
