@@ -25,9 +25,16 @@ driver at the CLI's default quality (the prescan sweep and the sweep of
 failed lines) and at INSANE (the full sweep), kernel route against plain
 route; and the CLI (sdvpcmdecoder_tpu_torch.__main__) under every backend,
 its WAVs held to the hashes of the JAX package's CLI, once as a
-`python -m` subprocess. Times the kernels, their plain versions, the
-sweep, the chain, the round, the driver and the CLI. Needs one NVIDIA GPU;
-from the repository root:
+`python -m` subprocess; PCM-1 and PCM-16x0 (P1-P5); then the ingest
+surface and multi-GPU (C1-C9): the golden PAL capture in AVI and
+Matroska files of each lossless codec through the CLI and the driver,
+each codec's read time, dropped slots, 1 and 2 concurrent
+ShardedBatchDecoder shards on one card, the mesh step, a 720-px capture,
+the ArVid dump and Queue 3's paths (M2, BFF, 16-bit, forced coordinates,
+several captures at once), all held to the JAX package's hashes. Times
+the kernels, their plain versions, the sweep, the chain, the round, the
+driver, the codecs and the CLI. Needs one NVIDIA GPU; from the
+repository root:
 
     python3 chip_smoke.py
 
@@ -108,22 +115,20 @@ CLI_GOLDEN_RUNS = (   # (quality, backend, extra arguments)
     ("insane", "tpu", ["--batch", "4"]))
 
 
-def write_capture(path, n_frames, lpf, seed, noise=0.0):
-    """A y4m STC-007 capture of n_frames frames, 2 * lpf lines x WIDTH px,
-    written with the port's encoder (8 px per bit, the fields of a frame
-    interleaved): the recipe of the JAX package's driver tests. Returns
-    the path."""
-    from sdvpcmdecoder_tpu_torch.pipeline import ingest
+def capture_frames(n_frames, lpf, seed, noise=0.0, width=WIDTH, ppb=8.0):
+    """STC-007 frames [n_frames, 2 * lpf, width] u8 from the port's encoder
+    (ppb px per bit, the fields of a frame interleaved): the recipe of the
+    JAX package's driver tests."""
     from sdvpcmdecoder_tpu_torch.synth import encoder as enc
     rng = np.random.default_rng(seed)
     n = 3 * n_frames * 2 * lpf
     frames = enc.encode_fields(rng.integers(1, 1 << 14, n),
                                rng.integers(1, 1 << 14, n), n_frames,
                                lines_pf=lpf)
-    vids = np.zeros((n_frames, 2 * lpf, WIDTH), np.uint8)
+    vids = np.zeros((n_frames, 2 * lpf, width), np.uint8)
     for f, fr in enumerate(frames):
         pixels, _ = enc.render_lines(fr["line_words"], fr["crcs"],
-                                     width=WIDTH, ppb=8.0)
+                                     width=width, ppb=ppb)
         L = pixels.shape[0]
         if noise:
             pixels = np.clip(pixels.astype(np.int16)
@@ -131,7 +136,14 @@ def write_capture(path, n_frames, lpf, seed, noise=0.0):
                 .astype(np.uint8)
         vids[f, 0::2] = pixels[:L // 2]
         vids[f, 1::2] = pixels[L // 2:]
-    ingest.write_y4m(path, vids)
+    return vids
+
+
+def write_capture(path, n_frames, lpf, seed, noise=0.0):
+    """A y4m STC-007 capture of n_frames frames, 2 * lpf lines x WIDTH px
+    (capture_frames at 8 px per bit). Returns the path."""
+    from sdvpcmdecoder_tpu_torch.pipeline import ingest
+    ingest.write_y4m(path, capture_frames(n_frames, lpf, seed, noise))
     return path
 
 
@@ -1021,6 +1033,493 @@ def pcm_device_busy(cls, jobs, tmp, **kw):
             sum(e.count for e in rows), wall * 1e3)
 
 
+# ---- Containers, ArVid, multi-GPU and Queue 3's paths (phases C1-C9) -------
+# The codecs, the container parsers, ArVid and the shards' threads are host
+# code, as in the JAX package. What these phases hold on the card is K1
+# under new callers: AVI/MKV readers into the CLI and the chip-resident
+# driver, concurrent shards on one card, the mesh step's per-line
+# decode_stream ([L, 1, W]) and the 1440-px rows of a 720-px capture.
+CONTAINERS = (("avi", "Y800"), ("avi", "HFYU"), ("avi", "ULY0"),
+              ("mkv", "ULY0"))        # the golden PAL capture in each
+CONTAINER_BACKENDS = ("tpu", "device", None)
+CROP_CODECS = ("LAGS", "FFV1")        # pixels checked on a crop ...
+CROP_LINES = 48
+SLOW_FRAMES = 2                       # ... and timed on 2 PAL frames
+BIG_AVI = (("Y800", DRIVER_FRAMES), ("ULY0", 64))   # the CLI under tpu
+# sha256 of the WAV the JAX package's CLI writes at its defaults,
+#     python -m sdvpcmdecoder_tpu drops.avi -o out.wav
+# for the golden PAL capture (capture_frames(12, 294, seed=1)) in a Y800
+# AVI with the timeline slots AVI_DROPS dropped (zero-length idx1 entries:
+# 14 slots, two of them black); tests/test_torch_container_golden.py
+# recomputes it from the JAX package's CLI.
+AVI_DROPS = (3, 8)
+GOLDEN_AVI_SHA256 = \
+    "f955bb2c0d3a6c3e1436c063c1c9bb95b3de4db640583a3fd44b8f7e3d502fee"
+# A capture card's PAL frame (pipeline/capture.py PAL_PRESET): 720 x 576,
+# rendered at 1440 px and 10 px a bit, every other column kept; the CLI
+# doubles it back to 1440-px rows (ingest.split_fields). sha256 of the JAX
+# CLI's WAV at its defaults under every --backend.
+WIDE = dict(n_frames=6, lpf=288, seed=6)
+GOLDEN_WIDE_SHA256 = \
+    "a86a3479c2c224ece7ad793a486bde7fa7eaa165adafa2558b8325d5547c45ed"
+# ArVid (--format arvid, host numpy in both packages): sha256 of the word
+# dump (.txt) and the raw words (.bin) the JAX CLI writes for
+# write_arvid_capture(path, **ARVID) with --force-coords at its coords.
+ARVID = dict(n_frames=4, seed=14)
+GOLDEN_ARVID_SHA256 = {
+    "txt": "1770f4d2a7d984fb769b84b929210dde7b175107c4ab845319e6121fd0b19840",
+    "bin": "f7f2fa392b55b06f9b579565032f5b18fc2d14c9a498021d73951bf8095a87c9",
+}
+# Queue 3's card check: CLI flags and driver presets checked on the CPU
+# only before. sha256 of the JAX package's WAVs for write_capture(path,
+# **Q3): its CLI at the defaults plus each flag set (every backend writes
+# the same bytes; --force-coords is not a --backend device flag), its
+# DeviceBatchDecoder with each preset (hyst 2, shift 1, 5 frames a round),
+# and its BatchDecoder on Q3_MULTI's three captures at once (the golden
+# PAL, CLI_NOISY and Q3: run_tpu's fused dispatch and run_native).
+Q3 = dict(n_frames=4, lpf=294, seed=5, noise=24.0)
+Q3_CLI = {"m2": ["--format", "m2"], "bff": ["--field-order", "bff"],
+          "16bit": ["--resolution", "16bit"],
+          "force_coords": ["--force-coords", "40:1096"]}
+GOLDEN_Q3_CLI_SHA256 = {
+    "m2": "9f769956ad570514a0c0c7516355193131761c20e0d29d6c798232b1b6d87c67",
+    "bff": "29a9c895653bffaacd86c07364c8e876cb509f4aae5d2b81951fc73f8e52ded4",
+    "16bit":
+        "d981f13345aab2f00ce8e92f41b66f6c669f82800bbe883a6789e2fd216538c8",
+    "force_coords":
+        "8388504374e3be21b37a32a42ab11e3d6db6779312f53e33cf430f8256119de9",
+}
+Q3_DRIVER = {"m2": dict(mode_m2=True),
+             "bff_16bit": dict(preset_order=2, preset_resolution=2)}
+GOLDEN_Q3_DRIVER_SHA256 = {
+    "m2": "9f769956ad570514a0c0c7516355193131761c20e0d29d6c798232b1b6d87c67",
+    "bff_16bit":
+        "a7f4a5d35013438ce1a16913343fc3d77fe31c515eb2c304fcaa055e15fc16b2",
+}
+Q3_MULTI_KW = dict(lines_per_field=294, hyst_limit=2, shift_limit=1,
+                   frames_per_round=5)
+GOLDEN_Q3_MULTI_SHA256 = {
+    "pal": GOLDEN_SHA256["pal"],
+    "noisy":
+        "1a00aea86593ab0ec3ee2c7f23ef45c621f88b1b3aaf93399bdd2c5d88d975c1",
+    "q3": "8388504374e3be21b37a32a42ab11e3d6db6779312f53e33cf430f8256119de9",
+}
+SHARD_COPIES = 4        # the golden PAL capture, once per job
+
+
+def write_container(path, frames, codec, drops=(), encoded=(None, None)):
+    """frames in an AVI or (by the extension) Matroska file of `codec`,
+    through the port's writers; `encoded` is (payloads, extradata) from
+    encode_task, or None for the writer's own encode. Returns the path."""
+    from sdvpcmdecoder_tpu_torch.pipeline import avi, mkv
+    writer = mkv.write_mkv if str(path).endswith(".mkv") else avi.write_avi
+    payloads, extradata = encoded
+    writer(path, frames, codec=codec, drops=list(drops), payloads=payloads,
+           extradata=extradata)
+    return path
+
+
+def wide_frames(n_frames, lpf, seed):
+    """A 720-px PAL capture: capture_frames at 1440 px and 10 px a bit,
+    every other column."""
+    return np.ascontiguousarray(capture_frames(
+        n_frames, lpf, seed, width=2 * 720, ppb=10.0)[:, :, ::2])
+
+
+def write_arvid_capture(path, n_frames=4, seed=14, width=1024):
+    """A y4m ArVid capture, PAL_LINES lines x `width` px of random 18 x
+    8-bit word rows at 5.5 px a bit (the recipe of the JAX package's ArVid
+    tests at full height). Returns (path, data coordinates)."""
+    from sdvpcmdecoder_tpu_torch.formats import arvid
+    from sdvpcmdecoder_tpu_torch.pipeline import ingest
+    from sdvpcmdecoder_tpu_torch.synth import encoder as enc
+    rng = np.random.default_rng(seed)
+    words = rng.integers(0, 256, size=(n_frames, PAL_LINES, arvid.WORD_CNT))
+    vids = np.zeros((n_frames, PAL_LINES, width), np.uint8)
+    for f in range(n_frames):
+        px, coords = enc.render_bits(arvid.words_to_data_bits(words[f]),
+                                     width=width, ppb=5.5)
+        vids[f, 0::2] = px[:PAL_LINES // 2]
+        vids[f, 1::2] = px[PAL_LINES // 2:]
+    ingest.write_y4m(path, vids, chroma="mono")
+    return path, coords
+
+
+def encode_task(codec, recipe, count):
+    """(payloads, extradata) of `codec` for the first `count` frames of
+    capture_frames(*recipe): one task of the encoder pool (the frames are
+    made in the worker, not pickled)."""
+    from sdvpcmdecoder_tpu_torch.pipeline import avi
+    return avi.resolve_payloads(capture_frames(*recipe)[:count], codec)
+
+
+def _pin_to_last_cores():
+    """Keep the encoder pool off the cores the timed phases run on."""
+    import os
+    n = os.cpu_count() or 1
+    if n >= 6 and hasattr(os, "sched_setaffinity"):
+        os.sched_setaffinity(0, range(n - 3, n))
+
+
+def start_encodes():
+    """The container phases' encodes, started in 3 spawned processes
+    beside the builds (LAGS and FFV1 take seconds a PAL frame). Returns
+    (pool, {name: future})."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    pool = ProcessPoolExecutor(3, mp_context=multiprocessing.get_context(
+        "spawn"), initializer=_pin_to_last_cores)
+    pal = (12, 294, 1)
+    big = (DRIVER_FRAMES, 294, DRIVER_SEEDS[0])
+    tasks = {"pal_HFYU": ("HFYU", pal, 12), "pal_ULY0": ("ULY0", pal, 12),
+             "big_ULY0": ("ULY0", big, 64)}
+    for codec in CROP_CODECS:
+        tasks[f"slow_{codec}"] = (codec, pal, SLOW_FRAMES)
+    return pool, {k: pool.submit(encode_task, *v) for k, v in tasks.items()}
+
+
+def read_ms(path, n, first=1, batch=16, repeats=3):
+    """A reader's cost on the card machine's host, in ms per PAL frame:
+    (first call: open and read_frames(0, first); steady state: the other
+    frames in batches of `batch`, median over `repeats` fresh readers)."""
+    from sdvpcmdecoder_tpu_torch.pipeline import ingest
+    firsts, steady = [], []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        with ingest.open_capture(path) as rd:
+            rd.read_frames(0, first)
+            t1 = time.perf_counter()
+            for base in range(first, n, batch):
+                rd.read_frames(base, min(batch, n - base))
+            t2 = time.perf_counter()
+        firsts.append((t1 - t0) * 1e3)
+        steady.append((t2 - t1) * 1e3 / (n - first))
+    return statistics.median(firsts), statistics.median(steady)
+
+
+def sharded_run(jobs, devices, resident):
+    """ShardedBatchDecoder over `jobs` on `devices`: (WAV bytes per job,
+    the decoder, wall seconds, K1 launches)."""
+    from sdvpcmdecoder_tpu_torch.ops import fused_binarize as fb
+    from sdvpcmdecoder_tpu_torch.parallel.multichip import ShardedBatchDecoder
+    fb.stc007_fused_decode_frames.launches = 0
+    t0 = time.perf_counter()
+    sh = ShardedBatchDecoder(jobs, devices=devices, device_resident=resident,
+                             **Q3_MULTI_KW)
+    sh.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return ([open(o, "rb").read() for _, o in jobs], sh, wall,
+            fb.stc007_fused_decode_frames.launches)
+
+
+def ingest_phases(dev, card, tmp, golden, big, cli_noisy, y4m_cli, encodes):
+    """Phases C1-C9 (this slice): containers, their codecs' read times,
+    the sharded drivers, the mesh step, the 720-px capture, ArVid and
+    Queue 3's paths. y4m_cli: phase 17's CLI on big[0] under --backend tpu
+    (frames/s, WAV bytes). Returns K1 launches per path."""
+    import hashlib
+    import os
+    import shutil
+
+    from sdvpcmdecoder_tpu_torch.ops import fused_binarize as fb
+    from sdvpcmdecoder_tpu_torch.parallel import mesh as pm
+    from sdvpcmdecoder_tpu_torch.pipeline import batch_driver as bd
+    from sdvpcmdecoder_tpu_torch.pipeline import decoder
+    from sdvpcmdecoder_tpu_torch.pipeline import ingest
+    from sdvpcmdecoder_tpu_torch.synth import encoder as enc
+
+    k1 = lambda: fb.stc007_fused_decode_frames.launches
+    sha = lambda p: hashlib.sha256(open(p, "rb").read()).hexdigest()
+    launches = {}
+    pool, futures = encodes
+    t0 = time.perf_counter()
+    enc_out = {k: f.result() for k, f in futures.items()}
+    pool.shutdown()
+    print(f"[encode] LAGS/FFV1/HFYU/ULY0 payloads from the background pool "
+          f"(3 spawned processes since phase 1): waited "
+          f"{time.perf_counter() - t0:.2f} s here")
+
+    # -- C1: the golden PAL capture in each container, through the CLI ---
+    pal = capture_frames(12, 294, seed=1)
+    fb.stc007_fused_decode_frames.launches = 0
+    for kind, codec in CONTAINERS:
+        path = write_container(os.path.join(tmp, f"pal_{codec}.{kind}"),
+                               pal, codec, encoded=enc_out.get(
+                                   f"pal_{codec}", (None, None)))
+        for backend in CONTAINER_BACKENDS:
+            out = os.path.join(tmp, f"pal_{codec}_{kind}_{backend}.wav")
+            n0 = k1()
+            rc, secs = cli_run([path, "-o", out]
+                               + (["--backend", backend] if backend else []))
+            check(rc == 0, f"CLI {kind}/{codec}/{backend}: exit {rc}")
+            check(k1() > n0, f"CLI {kind}/{codec}/{backend}: no K1 launch")
+            check(sha(out) == GOLDEN_CLI_SHA256["pal"],
+                  f"CLI {kind}/{codec}/{backend}: WAV is not the JAX CLI's "
+                  "of the same frames in y4m")
+            print(f"[container] {codec} {kind.upper()}, --backend "
+                  f"{backend or '(none)'}: WAV sha256 equals the JAX CLI's "
+                  f"y4m golden ({secs:.2f} s, {k1() - n0} K1 launches)")
+
+    # -- C2: the slow codecs' pixels, and every codec's read time ---------
+    crop = np.ascontiguousarray(pal[:2, :CROP_LINES])
+    for codec in CROP_CODECS:
+        for kind in ("avi", "mkv"):
+            path = write_container(os.path.join(tmp, f"crop_{codec}.{kind}"),
+                                   crop, codec)
+            with ingest.open_capture(path) as rd:
+                got = rd.read_frames(0, 2)
+            check(np.array_equal(got, crop),
+                  f"{codec} {kind}: reader pixels differ from the source")
+        print(f"[container] {codec} AVI and MKV, 2 frames x {CROP_LINES} "
+              f"lines x {WIDTH} px: reader pixels == source pixels")
+    timed = {}
+    big_frames = capture_frames(DRIVER_FRAMES, 294, DRIVER_SEEDS[0])
+    big_avi = {
+        "Y800": write_container(os.path.join(tmp, "big_Y800.avi"),
+                                big_frames, "Y800"),
+        "ULY0": write_container(os.path.join(tmp, "big_ULY0.avi"),
+                                big_frames[:64], "ULY0",
+                                encoded=enc_out["big_ULY0"])}
+    timed["Y800"] = (big_avi["Y800"], DRIVER_FRAMES)
+    timed["ULY0"] = (big_avi["ULY0"], 64)
+    timed["HFYU"] = (os.path.join(tmp, "pal_HFYU.avi"), 12)
+    for codec in CROP_CODECS:
+        path = write_container(os.path.join(tmp, f"slow_{codec}.avi"),
+                               pal[:SLOW_FRAMES], codec,
+                               encoded=enc_out[f"slow_{codec}"])
+        with ingest.open_capture(path) as rd:
+            check(np.array_equal(rd.read_frames(0, SLOW_FRAMES),
+                                 pal[:SLOW_FRAMES]),
+                  f"{codec} AVI: PAL-frame pixels differ from the source")
+        timed[codec] = (path, SLOW_FRAMES)
+    read_times = {}
+    for codec, (path, n) in timed.items():
+        first, steady = read_ms(path, n)
+        read_times[codec] = dict(first_ms=first, ms_per_frame=steady,
+                                 frames=n)
+        print(f"[codec] {codec} AVI read, PAL 588 x {WIDTH}: first call "
+              f"{first:.2f} ms (open + 1 frame), then {steady:.3f} ms a "
+              f"frame ({1e3 / steady:.1f} frames/s; {n} frames, median of "
+              f"3 readers, batches of 16) on the host of {card}")
+
+    # -- C3: dropped slots, and the CLI on long AVIs beside the y4m ------
+    drops = write_container(os.path.join(tmp, "drops.avi"), pal, "Y800",
+                            drops=AVI_DROPS)
+    out = os.path.join(tmp, "drops.wav")
+    n0 = k1()
+    rc, _ = cli_run([drops, "-o", out])
+    check(rc == 0 and k1() > n0, f"CLI drops.avi: exit {rc}, "
+          f"{k1() - n0} K1 launches")
+    check(sha(out) == GOLDEN_AVI_SHA256,
+          f"CLI drops.avi: WAV sha256 {sha(out)} is not the JAX CLI's")
+    print(f"[container] Y800 AVI with slots {AVI_DROPS} dropped (14 "
+          f"slots): WAV sha256 equals the JAX CLI's ({k1() - n0} K1 "
+          "launches)")
+    y4m_fps, y4m_wav = y4m_cli
+    n0 = k1()
+    out = os.path.join(tmp, "big_y4m_64.wav")
+    rc, secs_y64 = cli_run([big[0], "-o", out, "--backend", "tpu",
+                            "--frames", "64"])
+    check(rc == 0, f"CLI big y4m --frames 64: exit {rc}")
+    y4m_launches = k1() - n0   # not a container run: left out of the count
+    y4m_64 = open(out, "rb").read()
+    avi_fps = {}
+    for codec, n in BIG_AVI:
+        out = os.path.join(tmp, f"big_{codec}.wav")
+        n0 = k1()
+        rc, secs = cli_run([big_avi[codec], "-o", out, "--backend", "tpu"])
+        check(rc == 0 and k1() > n0, f"CLI big {codec} AVI: exit {rc}")
+        expect = y4m_wav if n == DRIVER_FRAMES else y4m_64
+        check(open(out, "rb").read() == expect,
+              f"CLI big {codec} AVI: WAV differs from the y4m's")
+        avi_fps[codec] = n / secs
+        print(f"[container] CLI --backend tpu on {n} PAL frames in a "
+              f"{codec} AVI: {n / secs:.1f} frames/s ({k1() - n0} K1 "
+              f"launches), WAV equals the y4m's; the y4m: "
+              f"{y4m_fps if n == DRIVER_FRAMES else 64 / secs_y64:.1f} "
+              f"frames/s (phase 17{'' if n == DRIVER_FRAMES else ', --frames 64'})"
+              f" on {card}")
+    launches["cli_containers"] = k1() - y4m_launches   # C1 and C3
+
+    # -- C4: the chip-resident driver on a container ---------------------
+    fb.stc007_fused_decode_frames.launches = 0
+    wavs, dec, _, _ = driver_run([os.path.join(tmp, "pal_ULY0.mkv")], tmp,
+                                 "mkv", True, **Q3_MULTI_KW)
+    check(hashlib.sha256(wavs[0]).hexdigest() == GOLDEN_SHA256["pal"]
+          and k1() > 0, "DeviceBatchDecoder on the ULY0 MKV: WAV is not "
+          "the golden, or no K1 launch")
+    wavs, dec, _, _ = driver_run([drops], tmp, "drops", True, **Q3_MULTI_KW)
+    check(dec.jobs[0].stats.frames_dropped == len(AVI_DROPS),
+          "DeviceBatchDecoder: frames_dropped not taken from the reader")
+    launches["driver_containers"] = k1()
+    print(f"[container] DeviceBatchDecoder on the ULY0 MKV: WAV equals "
+          f"GOLDEN_SHA256['pal']; on drops.avi frames_dropped="
+          f"{dec.jobs[0].stats.frames_dropped}; {k1()} K1 launches")
+
+    # -- C5: ShardedBatchDecoder, 1 and 2 concurrent shards on one card --
+    jobs = []
+    for k in range(SHARD_COPIES):
+        cap = os.path.join(tmp, f"shard{k}.y4m")
+        shutil.copyfile(golden["pal"], cap)
+        jobs.append((cap, os.path.join(tmp, f"shard{k}.wav")))
+    launches["sharded"] = 0
+    for resident in (False, True):
+        ref = None
+        for devices in ([dev], [dev, dev]):
+            wavs, sh, wall, n = sharded_run(jobs, devices, resident)
+            launches["sharded"] += n
+            tag = (f"{len(devices)} shard(s), "
+                   f"{'device_resident' if resident else 'streaming tpu'}")
+            check(all(hashlib.sha256(w).hexdigest() == GOLDEN_SHA256["pal"]
+                      for w in wavs), f"sharded {tag}: WAV not the golden")
+            check(ref is None or wavs == ref, f"sharded {tag}: WAVs "
+                  "differ from the 1-way run")
+            check(np.array_equal(sh.stats, sh.shard_stats.sum(axis=0))
+                  and sh.stats[0] == SHARD_COPIES * 12,
+                  f"sharded {tag}: stats {sh.stats} vs {sh.shard_stats}")
+            check(n > 0, f"sharded {tag}: no K1 launch")
+            ref = wavs
+            print(f"[sharded] {tag} on {[str(d) for d in devices]}: "
+                  f"{SHARD_COPIES} x 12 PAL frames, every WAV equals "
+                  f"GOLDEN_SHA256['pal'], stats {sh.stats.tolist()} == sum "
+                  f"over shards; {n} K1 launches; {wall:.2f} s wall")
+
+    # -- C6: the mesh step against decode_stream on the whole capture ----
+    rng = np.random.default_rng(42)
+    n_lines = 4 * pm.HALO + 112
+    n = 3 * n_lines
+    pixels, coords, _, _ = enc.encode_stream(
+        rng.integers(1, 1 << 14, n), rng.integers(1, 1 << 14, n),
+        width=WIDTH, ppb=8.0, n_lines=n_lines, noise_sigma=20.0, rng=rng)
+    lv = [np.full(n_lines, v, np.int32) for v in (110, 20, 200)]
+    whole = [torch.from_numpy(a).to(dev) for a in (pixels, coords, *lv)]
+    fb.stc007_fused_decode_frames.launches = 0
+    ref_k = decoder.decode_stream(*whole, hyst_limit=1, shift_limit=1)
+    ref_p = decoder.decode_stream(*whole, hyst_limit=1, shift_limit=1,
+                                  use_kernel=False)
+    check(k1() == 1 and all(torch.equal(a, b) for a, b in zip(ref_k, ref_p)),
+          "decode_stream: K1 route differs from the plain route")
+    D, S = 2, 4
+    grid = pm.decode_mesh(D * S, seq=S, devices=[dev])
+    chunks, chunk = pm.chunk_lines_with_halo(pixels, S)
+    Lc = chunks.shape[1]
+    per = [np.broadcast_to(a[None], (D,) + a.shape).copy() for a in (
+        chunks, pm.chunk_lines_with_halo(coords, S)[0])]
+    per += [np.full((D, S, Lc), v, np.int32) for v in (110, 20, 200)]
+    errs = [compare_k1(f"mesh chunk {Lc} lines x 1 (per-line coords)",
+                       torch.from_numpy(chunks[0][:, None]).to(dev),
+                       torch.from_numpy(per[1][0, 0]).to(dev),
+                       tuple(torch.from_numpy(a[0, 0]).to(dev)
+                             for a in per[2:]), (1, 1))]
+    fb.stc007_fused_decode_frames.launches = 0
+    step = pm.multichip_decode_step(grid, hyst_limit=1, shift_limit=1)
+    gathered, n_valid = step(*(pm.shard_captures(a, grid) for a in per))
+    torch.cuda.synchronize()
+    launches["mesh_step"] = k1()
+    check(k1() == D * S, f"mesh step: {k1()} K1 launches, not {D * S}")
+    stitched = torch.cat([gathered[0][0][k, :3 * chunk] for k in range(S)])
+    n_cmp = min(len(stitched), len(ref_k.samples))
+    check(torch.equal(stitched[:n_cmp], ref_k.samples[:n_cmp])
+          and int(n_valid[1][3]) > 0, "mesh step: samples differ from "
+          "decode_stream on the whole capture")
+    print(f"[mesh] multichip_decode_step on a {D} x {S} grid of {dev} "
+          f"({n_lines} lines, chunks of {chunk} + {pm.HALO} halo): the "
+          f"gathered samples equal decode_stream's on the whole capture "
+          f"(K1 == plain there too); {D * S} K1 launches, grid-wide valid "
+          f"lines {int(n_valid[0][0])}")
+
+    # -- C7: a 720-px capture (1440-px rows on the card) -----------------
+    wide = os.path.join(tmp, "wide.y4m")
+    ingest.write_y4m(wide, wide_frames(**WIDE))
+    fb.stc007_fused_decode_frames.launches = 0
+    for backend in ("tpu", "device"):
+        out = os.path.join(tmp, f"wide_{backend}.wav")
+        n0 = k1()
+        rc, _ = cli_run([wide, "-o", out, "--backend", backend])
+        check(rc == 0 and k1() > n0, f"CLI 720-px/{backend}: exit {rc}")
+        check(sha(out) == GOLDEN_WIDE_SHA256,
+              f"CLI 720-px/{backend}: WAV is not the JAX CLI's")
+    launches["cli_720px"] = k1()
+    with ingest.open_capture(wide) as rd:
+        lines_b, _ = ingest.split_fields_batch(rd.read_frames(0, 4))
+    dbl = torch.from_numpy(lines_b).to(dev)
+    _, wcd = enc.render_lines(np.zeros((4, 8), np.int64),
+                              np.zeros(4, np.int64), width=2 * 720, ppb=10.0)
+    wcd = torch.from_numpy(wcd).to(dev)   # the encoder's coords at 1440 px
+    errs.append(compare_k1(f"720-px capture doubled, 4 x {dbl.shape[1]} x "
+                           f"{dbl.shape[2]}", dbl, wcd, frame_levels(4, dev),
+                           NORMAL))
+    print(f"[wide] 720 x 576 capture, 1440-px rows on the card: CLI tpu "
+          f"and device WAVs equal the JAX CLI's; "
+          f"{launches['cli_720px']} K1 launches")
+
+    # -- C8: ArVid (host numpy in both packages) -------------------------
+    acap, acd = write_arvid_capture(os.path.join(tmp, "arvid.y4m"), **ARVID)
+    out = os.path.join(tmp, "arvid.txt")
+    n0 = k1()
+    rc, secs = cli_run([acap, "-o", out, "--format", "arvid",
+                        "--force-coords", f"{acd[0]}:{acd[1]}"])
+    check(rc == 0, f"CLI --format arvid: exit {rc}")
+    got = {"txt": sha(out), "bin": sha(os.path.join(tmp, "arvid.bin"))}
+    check(got == GOLDEN_ARVID_SHA256, f"ArVid dump {got} is not the JAX "
+          f"CLI's {GOLDEN_ARVID_SHA256}")
+    launches["arvid"] = k1() - n0
+    check(launches["arvid"] == 0, "ArVid launched K1")
+    print(f"[arvid] --format arvid on {ARVID['n_frames']} frames x "
+          f"{PAL_LINES} lines: dump and raw words equal the JAX CLI's "
+          f"({secs:.2f} s, host numpy, 0 K1 launches)")
+
+    # -- C9: Queue 3's paths on the card ----------------------------------
+    q3 = write_capture(os.path.join(tmp, "q3.y4m"), **Q3)
+    fb.stc007_fused_decode_frames.launches = 0
+    for name, flags in Q3_CLI.items():
+        for backend in ("tpu", "device"):
+            if name == "force_coords" and backend == "device":
+                continue
+            out = os.path.join(tmp, f"q3_{name}_{backend}.wav")
+            n0 = k1()
+            rc, _ = cli_run([q3, "-o", out, "--backend", backend] + flags)
+            check(rc == 0 and k1() > n0, f"CLI {name}/{backend}: exit {rc}")
+            check(sha(out) == GOLDEN_Q3_CLI_SHA256[name],
+                  f"CLI {name}/{backend}: WAV is not the JAX CLI's")
+        print(f"[queue3] CLI {' '.join(flags)} under --backend tpu"
+              f"{'' if name == 'force_coords' else ' and device'}: WAV "
+              "equals the JAX CLI's")
+    for name, kw in Q3_DRIVER.items():
+        got = {}
+        for use_kernel in (True, False):
+            wavs, _, _, _ = driver_run([q3], tmp, f"q3{name}{use_kernel}",
+                                       use_kernel, **Q3_MULTI_KW, **kw)
+            got[use_kernel] = wavs[0]
+        check(got[True] == got[False], f"driver {name}: K1 WAV differs "
+              "from the plain binarize's")
+        check(hashlib.sha256(got[True]).hexdigest()
+              == GOLDEN_Q3_DRIVER_SHA256[name],
+              f"driver {name}: WAV is not the JAX driver's")
+        print(f"[queue3] DeviceBatchDecoder {kw}: K1 == plain, WAV equals "
+              "the JAX driver's")
+    multi = {"pal": golden["pal"], "noisy": cli_noisy, "q3": q3}
+    for backend in ("tpu", "native"):
+        jobs = [(cap, os.path.join(tmp, f"multi_{backend}_{k}.wav"))
+                for k, cap in multi.items()]
+        n0 = k1()
+        bd.BatchDecoder(jobs, backend=backend, device=DEVICE,
+                        **Q3_MULTI_KW).run()
+        for (cap, out), name in zip(jobs, multi):
+            check(sha(out) == GOLDEN_Q3_MULTI_SHA256[name],
+                  f"BatchDecoder {backend}, 3 captures: {name}'s WAV is not "
+                  "the JAX package's")
+        check((k1() > n0) == (backend == "tpu"),
+              f"BatchDecoder {backend}: {k1() - n0} K1 launches")
+        print(f"[queue3] BatchDecoder --backend {backend} on 3 captures at "
+              f"once (run_{backend}): each WAV equals the JAX package's "
+              f"({k1() - n0} K1 launches)")
+    launches["queue3"] = k1()
+    return launches, errs, dict(read_ms=read_times, cli_avi_fps=avi_fps,
+                                cli_y4m_fps=y4m_fps)
+
+
 def main():
     check(torch.cuda.is_available(), "no CUDA device "
           "(torch.cuda.is_available() is false)")
@@ -1049,6 +1548,7 @@ def main():
     native_before = tree_digest(sn.NATIVE_SRC)
     pool = ThreadPoolExecutor(1)   # g++ for the native core beside nvcc
     native_build = pool.submit(sn.build, "stitchcore.cpp")
+    encodes = start_encodes()   # the container phases' payloads
     build = _kernels.build("stc007_binarize")
     _kernels.load("stc007_binarize")
     usage = [ln.strip() for ln in build.log.splitlines()
@@ -1767,6 +2267,12 @@ def main():
 
     # -- phases P1-P5: PCM-1 and PCM-16x0 -----------------------------------
     launches_pcm = pcm_phases(dev, card, tmp)
+
+    # -- phases C1-C9: containers, multi-GPU, ArVid and Queue 3's paths --
+    launches_ingest, errs_ingest, ingest_times = ingest_phases(
+        dev, card, tmp, golden, big, cli_caps["noisy"],
+        (cli_fps["tpu"], wq[0]), encodes)
+    errs += errs_ingest
     tmpdir.cleanup()
     check(tree_digest(sn.NATIVE_SRC) == native_before,
           "sdvpcmdecoder_tpu/native/ changed during the run")
@@ -1785,7 +2291,8 @@ def main():
                    # The PCM paths run the plain torch grid: 0 launches,
                    # counted (pcm_phases checks it).
                    "pcm_device": launches_pcm["pcm_device"],
-                   "pcm_cli": launches_pcm["pcm_cli"]}
+                   "pcm_cli": launches_pcm["pcm_cli"],
+                   **launches_ingest}
     # ms: the kernel's device time at the main path's shape (the round's
     # 16 x 588 x 1152, NORMAL); the other shapes and modes in "timings".
     # No single PyTorch call computes the trial grid: library_ms is null.
@@ -1802,7 +2309,8 @@ def main():
              # the profiler's trace of one sweep call is beside it.
              sweep_call=dict(launches_counted=counted,
                              trace_kernel_rows=sweep_trace[0],
-                             trace_copies=sweep_trace[1])),
+                             trace_copies=sweep_trace[1]),
+             ingest=ingest_times),
         dict(KERNEL2, launches=launches2, max_abs_err=max(errs2),
              ms=k2_ms, plain_ms=k2p_ms, bound_ms=k2_bound, bound_by=k2_by,
              library_ms=None, bound_share=k2_bound / k2_ms,

@@ -7,12 +7,13 @@ The batch-decoder equivalent of the reference desktop app's decode flow
 style per-frame stats print (mainwindow.h:108-194 analog).
 
 Port of sdvpcmdecoder_tpu/__main__.py, flags and defaults unchanged, for
-STC-007, M2, PCM-1, PCM-16x0 (SI), PCM-1630 (EI) and the format probe
-(--format auto) from Y4M, raw and FFmpeg-transcoded captures.  It adds
---device (cuda, the default, or cpu); --pallas keeps its name and forces
-the hand-written CUDA kernel (STC-007's trial grid; the PCM grid is plain
-torch on --device).  ArVid and AVI/Matroska containers are not ported
-yet: asking for one prints an error and returns 2.
+STC-007, M2, PCM-1, PCM-16x0 (SI), PCM-1630 (EI), the format probe
+(--format auto) and the ArVid word dump (--format arvid, host numpy as in
+the JAX package) from Y4M, raw, AVI and Matroska captures (decoded
+in-process, pipeline/avi.py and mkv.py) and FFmpeg-transcoded ones.  It
+adds --device (cuda, the default, or cpu); --pallas keeps its name and
+forces the hand-written CUDA kernel (STC-007's trial grid; the PCM grid is
+plain torch on --device).
 """
 from __future__ import annotations
 
@@ -36,8 +37,7 @@ def build_parser():
                    help="PCM format (default stc007; auto probes the "
                         "capture's format signature; arvid is the "
                         "prototype word-dump path, no audio out — "
-                        "matching the reference's debug-only support, "
-                        "not ported yet: it prints an error)")
+                        "matching the reference's debug-only support)")
     p.add_argument("--raw-size", default=None,
                    help="WxH for raw input, e.g. 1152x588")
     p.add_argument("--standard", default="auto",
@@ -113,10 +113,6 @@ def build_parser():
     return p
 
 
-NOT_PORTED_CONTAINERS = (".avi", ".mkv", ".mka", ".webm")
-NOT_PORTED_FORMATS = ("arvid",)
-
-
 def _ensure_decodable_input(args):
     """Auto-transcode non-Y4M/raw containers through FFmpeg (the
     reference opens any FFmpeg-decodable input, ffmpegwrapper.cpp:543
@@ -128,11 +124,20 @@ def _ensure_decodable_input(args):
     from .pipeline import ingest
     if ingest._is_stream(src):
         return src  # live FIFO/device: StreamReader pulls it directly
-    if src.lower().endswith(NOT_PORTED_CONTAINERS):
-        print(f"error: cannot open {src!r}: AVI/Matroska ingest "
-              "(pipeline/avi.py, pipeline/mkv.py and the codecs) is not "
-              "ported yet; transcode to Y4M", file=sys.stderr)
-        return None
+    if src.lower().endswith((".avi", ".mkv", ".mka", ".webm")):
+        # AVI and Matroska decode in-process (pipeline/avi.py,
+        # pipeline/mkv.py) unless the codec is outside the built-in
+        # set, in which case fall through to the FFmpeg transcode path.
+        from .pipeline import avi
+        try:
+            with ingest.open_capture(src) as rd:
+                if rd.dropped_frames:
+                    print(f"capture: {rd.dropped_frames} dropped "
+                          "frames re-inserted from the container index")
+            return src
+        except avi.AVIError as e:
+            print(f"in-process container decode unavailable ({e}); "
+                  "trying FFmpeg transcode", file=sys.stderr)
     import os
     import tempfile
     dst = os.path.join(tempfile.mkdtemp(prefix="sdvpcm_"),
@@ -176,10 +181,11 @@ def _decode_device(args, raw_size, mask_map, hyst, shift, out_path):
             ("--resolution", args.resolution != "auto"),
             ("--sample-rate", bool(args.sample_rate)),
             ("--per-line-agc", args.per_line_agc)) if on]
-    if unsupported:
-        print(f"error: --backend device does not support "
-              f"{' '.join(unsupported)}; use --backend auto/native/tpu",
-              file=sys.stderr)
+    if args.format == "arvid" or unsupported:
+        why = "arvid format" if args.format == "arvid" else \
+            " ".join(unsupported)
+        print(f"error: --backend device does not support {why}; "
+              "use --backend auto/native/tpu", file=sys.stderr)
         return 2
     mask_mode = mask_map[(args.mask, args.mask_scope)]
     t0 = time.perf_counter()
@@ -247,6 +253,35 @@ def _frame_batches(rd, start, frames_arg, batch):
         yield base, rd.read_frames(base, min(batch, n_frames - base))
 
 
+def _decode_arvid(args, raw_size):
+    """ArVid prototype path: binarize frames, dump words (no audio —
+    the reference's debug-only ArVid surface, videotodigital.cpp:857).
+    Host numpy, as in the JAX package (pipeline/arvid_pipe.py)."""
+    from .pipeline import arvid_pipe, ingest
+    out_path = args.output or (args.input.rsplit(".", 1)[0]
+                               + ".arvid.txt")
+    bin_path = out_path.rsplit(".", 1)[0] + ".bin"
+    open(out_path, "w").close()
+    open(bin_path, "wb").close()
+    fcoords = None
+    if args.force_coords:
+        a, b = args.force_coords.split(":")
+        fcoords = (int(a), int(b))
+    done = 0
+    with ingest.open_capture(args.input, raw_size=raw_size) as rd:
+        print(f"input: {rd.width}x{rd.height}, {rd.n_frames} frames")
+        for base, batch in _frame_batches(rd, 0, args.frames,
+                                          args.batch):
+            if batch.shape[0] == 0:
+                continue
+            lines_b, _nums = ingest.split_fields_batch(batch)
+            done += arvid_pipe.decode_to_dump(
+                lines_b, out_path, first_frame_number=base + 1,
+                coords=fcoords, bin_path=bin_path)
+    print(f"dumped {done} ArVid frames -> {out_path}")
+    return 0
+
+
 QUALITY_LIMITS = {  # (hyst_limit, shift_limit); binarizer.h:207-241
     "draft": (0, 0), "fast": (2, 1), "normal": (4, 2), "insane": (10, 4),
 }
@@ -268,11 +303,6 @@ def _make_live(spec, rate):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.format in NOT_PORTED_FORMATS:
-        print(f"error: --format {args.format}: the ArVid word-dump path "
-              "is not ported yet; this package decodes --format stc007, "
-              "m2, pcm1, pcm16x0, pcm1630 and auto", file=sys.stderr)
-        return 2
     if args.device == "cuda":
         import torch
         if not torch.cuda.is_available():
@@ -317,6 +347,9 @@ def main(argv=None):
         print(f"format probe: {fmt} "
               f"({', '.join(f'{k}={v:.2f}' for k, v in scores.items())})")
         args.format = fmt
+
+    if args.format == "arvid":
+        return _decode_arvid(args, raw_size)
 
     if args.backend == "device":
         return _decode_device(args, raw_size, mask_map, hyst, shift,

@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import NamedTuple
@@ -24,6 +25,10 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# Serialises builds and loads: threads of one process (the shards of
+# parallel/multichip.py) share a pid, so an unserialised second build
+# would write the first one's temporary file.
+_LOCK = threading.RLock()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
@@ -69,6 +74,11 @@ def _nvcc() -> str:
 @functools.lru_cache(maxsize=None)
 def build(name: str) -> Build:
     """Compile csrc/<name>.cu into build/kernels/ (once per source hash)."""
+    with _LOCK:
+        return _build(name)
+
+
+def _build(name: str) -> Build:
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
@@ -91,8 +101,9 @@ def build(name: str) -> Build:
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """The built library of csrc/<name>.cu with its C signatures declared."""
-    lib = ctypes.CDLL(str(build(name).path))
-    for fn, (restype, argtypes) in SIGNATURES[name].items():
-        getattr(lib, fn).restype = restype
-        getattr(lib, fn).argtypes = argtypes
-    return lib
+    with _LOCK:
+        lib = ctypes.CDLL(str(build(name).path))
+        for fn, (restype, argtypes) in SIGNATURES[name].items():
+            getattr(lib, fn).restype = restype
+            getattr(lib, fn).argtypes = argtypes
+        return lib

@@ -11,11 +11,12 @@ AGC pumping) doesn't skew the levels.
 
 Host formulation: per-line histograms are one flattened bincount over
 (line_id * 256 + pixel) ids — a single C pass, no Python loop; the
-256-step peak scans vectorize across lines.
+256-step peak scans vectorize across lines.  `line_histograms_device`
+is the torch twin for on-device use.
 
-Carried over from sdvpcmdecoder_tpu/ops/agc.py unchanged, except that its
-device twin of the histogram, `line_histograms_device`, is not ported yet:
-nothing in the decode path calls it.
+Carried over from sdvpcmdecoder_tpu/ops/agc.py; `line_histograms_device`
+is an int32 scatter-add on the tensors' device where the JAX package
+contracts a bf16 one-hot (both exact).
 """
 from __future__ import annotations
 
@@ -77,6 +78,22 @@ def region_histograms(pixels: np.ndarray, spans):
     line_id = np.broadcast_to(np.arange(N)[:, None] << 8, (N, W))
     ids = (line_id | pixels)[mask]
     return np.bincount(ids, minlength=N * 256).reshape(N, 256)
+
+
+def line_histograms_device(pixels, mask):
+    """Device twin: per-line masked histogram.
+
+    pixels [N, W] uint8/int tensor, mask [N, W] bool tensor -> hist
+    [N, 256] int32 on their device, hist[n, v] = #{w : mask[n, w] and
+    pixels[n, w] == v} (values outside 0..255 count nowhere).  An int32
+    scatter-add, exact at any width, in place of the JAX package's bf16
+    one-hot contraction: CUDA has no integer matmul."""
+    import torch
+    px = pixels.to(torch.int64)
+    counted = mask & (px >= 0) & (px < 256)
+    hist = torch.zeros((px.shape[0], 256), dtype=torch.int32,
+                       device=pixels.device)
+    return hist.scatter_add_(1, px.clamp(0, 255), counted.to(torch.int32))
 
 
 def _useful_levels(hist: np.ndarray, preset: BinPreset):

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -27,6 +28,14 @@ from . import binarize as bz
 NBITS = stc007.BITS_PCM_DATA  # 128
 DEFAULT_TILE_LINES = 32
 MAX_TILE_LINES = 32   # one warp per item, one line per lane
+# Guards the launch counters: threads on one card (the shards of
+# parallel/multichip.py) launch concurrently, and `+=` is not atomic.
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(wrapper):
+    with _COUNT_LOCK:
+        wrapper.launches += 1
 
 
 def _check(cond: bool, msg: str):
@@ -125,7 +134,7 @@ def _launch_frames(pixels, coords, ref_level, black, white, hyst_limit,
         args += [_ptr(t), t.stride(0), t.stride(1) if t.dim() == 2 else 0]
     batch = _launch("stc007_binarize_frames", pixels, args, hyst_limit,
                     shift_limit, tile_lines, synd_table, out)
-    stc007_fused_decode_frames.launches += 1
+    _count(stc007_fused_decode_frames)
     return batch
 
 
@@ -239,7 +248,7 @@ def stc007_fused_decode(pixels, coords, ref_level, black, white,
         args += [_ptr(t), t.stride(0)]
     batch = _launch("stc007_binarize_group", pixels[None], args,
                     hyst_limit, shift_limit, tile_lines, synd_table)
-    stc007_fused_decode.launches += 1
+    _count(stc007_fused_decode)
     return bz.LineBatch(*(t[0] for t in batch))
 
 

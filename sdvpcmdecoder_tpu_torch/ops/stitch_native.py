@@ -31,6 +31,7 @@ import hashlib
 import os
 import platform
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import NamedTuple
@@ -50,6 +51,7 @@ FLAG_CHAIN = (("-O3", "-march=native", "-fopenmp"), ("-O3", "-fopenmp"),
               ("-O3",))
 
 _LIB = None
+_LOAD_LOCK = threading.Lock()
 
 
 class Build(NamedTuple):
@@ -117,12 +119,18 @@ def _matrix_to_rows(m: np.ndarray) -> list[int]:
 
 def _load():
     """The loaded core, or None under SDV_NO_NATIVE=1.  Builds on first
-    use; a failed build raises."""
-    global _LIB
+    use; a failed build raises.  Concurrent callers (the shards of
+    parallel/multichip.py) load it once."""
     if _LIB is not None:
         return _LIB
     if os.environ.get("SDV_NO_NATIVE"):
         return None
+    with _LOAD_LOCK:
+        return _LIB if _LIB is not None else _load_locked()
+
+
+def _load_locked():
+    global _LIB
     L = ctypes.CDLL(str(build("stitchcore.cpp").path))
     L.stc007_set_q_tables.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
     L.stc007_correct_blocks.restype = ctypes.c_int
@@ -363,6 +371,46 @@ def _load():
     L.pcm16x0_burst_stats.argtypes = [
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32,
         ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p]
+    # Capture codecs (pipeline/huffyuv.py, lagarith.py, utvideo.py,
+    # ffv1.py and the batch paths of pipeline/avi.py).
+    L.hfyu_decode_yuy2.restype = ctypes.c_int
+    L.hfyu_decode_yuy2.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+    L.uly_decode_plane.restype = ctypes.c_int
+    L.uly_decode_plane.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_void_p]
+    L.lags_decode_plane.restype = ctypes.c_int
+    L.lags_decode_plane.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+    L.uly_decode_frames_gray.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_void_p, ctypes.c_void_p]
+    L.lags_decode_frames_gray.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p]
+    L.hfyu_decode_frames.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p]
+    L.ffv1_decode_frame_gray_v2.restype = ctypes.c_int
+    L.ffv1_decode_frame_gray_v2.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int32, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_void_p, ctypes.c_int32,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p]
     tpow_rows = np.zeros((13, gf2.BITS), dtype=np.uint16)
     for k in range(-6, 7):
         tpow_rows[k + 6] = _matrix_to_rows(gf2.tpow(k))
@@ -617,6 +665,146 @@ def steady_round(stores, carry_w32, carry_crc8, carry_ln, carry_fn,
 
 
 BS_SPEC = 11   # spec_round bail: device-round speculation did not match
+
+
+# -- capture codecs ---------------------------------------------------------
+# Each returns None only under SDV_NO_NATIVE=1, where the codec modules run
+# their Python decoders; a failed build raises from _load().
+
+def _bytes_u8(data):
+    """A bytes-like object (bytes, mmap, memoryview) or array as a
+    contiguous uint8 array, without a copy where the buffer allows."""
+    if isinstance(data, np.ndarray):
+        return np.ascontiguousarray(data, np.uint8)
+    return np.frombuffer(data, np.uint8)
+
+
+def hfyu_decode_yuy2(data, W, H, lens_y, lens_u, lens_v):
+    """HuffYUV YUY2 left-predictor frame -> luma [H, W] u8.  Raises
+    ValueError on malformed bitstreams."""
+    L = _load()
+    if L is None:
+        return None
+    data = _bytes_u8(data)
+    out = np.empty((int(H), int(W)), np.uint8)
+    rc = L.hfyu_decode_yuy2(
+        data.ctypes.data, data.size,
+        _as_u8(lens_y).ctypes.data, _as_u8(lens_u).ctypes.data,
+        _as_u8(lens_v).ctypes.data, int(W), int(H), out.ctypes.data)
+    if rc != 0:
+        raise ValueError(f"HFYU: malformed frame bitstream (rc={rc})")
+    return out
+
+
+def uly_decode_plane(data, pos, W, H, slices, pred, even_mask):
+    """Ut Video plane -> (rc, [H, W] u8).  rc: 0 ok, -1 truncated,
+    -2 invalid code, -3 bad slice offsets, -4 empty code-length table."""
+    L = _load()
+    if L is None:
+        return None
+    data = _bytes_u8(data)
+    out = np.empty((int(H), int(W)), np.uint8)
+    rc = L.uly_decode_plane(data.ctypes.data, data.size, int(pos),
+                            int(W), int(H), int(slices), int(pred),
+                            int(bool(even_mask)), out.ctypes.data)
+    return int(rc), out
+
+
+def _batch_args(data, entries):
+    offs = np.array([e[0] for e in entries], np.int64)
+    sizes = np.array([e[1] for e in entries], np.int64)
+    return _bytes_u8(data), offs, sizes
+
+
+def uly_decode_frames_gray(data, entries, W, H, slices, even_mask):
+    """Frame-parallel Ut Video batch decode (OMP across frames).
+    entries: [(offset, size)]; offset < 0 = dropped slot (black).
+    -> (rcs [F] i32, out [F, H, W] u8)."""
+    L = _load()
+    if L is None:
+        return None
+    data, offs, sizes = _batch_args(data, entries)
+    F = len(entries)
+    out = np.empty((F, int(H), int(W)), np.uint8)
+    rcs = np.empty(F, np.int32)
+    L.uly_decode_frames_gray(
+        data.ctypes.data, offs.ctypes.data, sizes.ctypes.data, F,
+        int(W), int(H), int(slices), int(bool(even_mask)),
+        out.ctypes.data, rcs.ctypes.data)
+    return rcs, out
+
+
+def lags_decode_frames_gray(data, entries, W, H):
+    """Frame-parallel Lagarith batch decode -> (rcs, out); rc -5 is an
+    unsupported frame type (the caller decodes that frame alone)."""
+    L = _load()
+    if L is None:
+        return None
+    data, offs, sizes = _batch_args(data, entries)
+    F = len(entries)
+    out = np.empty((F, int(H), int(W)), np.uint8)
+    rcs = np.empty(F, np.int32)
+    L.lags_decode_frames_gray(
+        data.ctypes.data, offs.ctypes.data, sizes.ctypes.data, F,
+        int(W), int(H), out.ctypes.data, rcs.ctypes.data)
+    return rcs, out
+
+
+def hfyu_decode_frames(data, entries, W, H, lens_y, lens_u, lens_v):
+    """Frame-parallel HuffYUV batch decode -> (rcs, out)."""
+    L = _load()
+    if L is None:
+        return None
+    ly, lu, lv = (_as_u8(t) for t in (lens_y, lens_u, lens_v))
+    data, offs, sizes = _batch_args(data, entries)
+    F = len(entries)
+    out = np.empty((F, int(H), int(W)), np.uint8)
+    rcs = np.empty(F, np.int32)
+    L.hfyu_decode_frames(
+        data.ctypes.data, offs.ctypes.data, sizes.ctypes.data, F,
+        ly.ctypes.data, lu.ctypes.data, lv.ctypes.data,
+        int(W), int(H), out.ctypes.data, rcs.ctypes.data)
+    return rcs, out
+
+
+def ffv1_decode_frame_gray(data, W, H, cfg_args, state_arrays):
+    """FFV1 v3 gray frame decode with Python-owned persistent slice
+    contexts.  cfg_args: (ac, ec, version, micro_version, num_h, num_v,
+    quant_tables [qt,5,256] i16, context_counts [qt] i32, max_cc,
+    one_state [256] u8).  state_arrays: (slice_qidx i32 [ns], vlc_states
+    i32 [ns*max_cc*4], rac_states u8 [ns*max_cc*32], seen_keyframe bool);
+    the three arrays are updated in place.  -> (rc, keyframe, out [H, W])."""
+    L = _load()
+    if L is None:
+        return None
+    (ac, ec, version, micro, num_h, num_v, qts, ccounts, max_cc,
+     one_state) = cfg_args
+    slice_qidx, vlc_states, rac_states, seen_keyframe = state_arrays
+    data = _bytes_u8(data)
+    out = np.empty((int(H), int(W)), np.uint8)
+    key = np.zeros(1, np.int32)
+    rc = L.ffv1_decode_frame_gray_v2(
+        data.ctypes.data, data.size, int(W), int(H),
+        int(ac), int(ec), int(version), int(micro), int(num_h), int(num_v),
+        qts.ctypes.data, ccounts.ctypes.data, int(len(ccounts)),
+        int(max_cc), one_state.ctypes.data, int(bool(seen_keyframe)),
+        slice_qidx.ctypes.data, vlc_states.ctypes.data,
+        rac_states.ctypes.data, key.ctypes.data, out.ctypes.data)
+    return int(rc), bool(key[0]), out
+
+
+def lags_decode_plane(src, spos, W, H):
+    """Lagarith plane (rac/raw/solid) -> (rc, luma [H, W] u8).  rc: 0 ok,
+    -1 malformed, -2 bitstream overrun, -3 zero-run-line coding
+    (unsupported), -4 bad escape; the caller maps codes to its messages."""
+    L = _load()
+    if L is None:
+        return None
+    src = _bytes_u8(src)
+    out = np.empty((int(H), int(W)), np.uint8)
+    rc = L.lags_decode_plane(src.ctypes.data, src.size, int(spos),
+                             int(W), int(H), out.ctypes.data)
+    return int(rc), out
 
 
 def spec_round(stores, carry_w32, carry_crc8, carry_ln, carry_fn,

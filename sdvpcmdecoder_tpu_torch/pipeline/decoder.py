@@ -42,15 +42,27 @@ def _stereo(blocks: di.BlockBatch, n_blocks: int, m2: bool):
 
 def decode_stream(pixels, coords, ref_level, black, white,
                   hyst_limit=4, shift_limit=2,
-                  res_mode=di.RES_MODE_14BIT, m2=False):
+                  res_mode=di.RES_MODE_14BIT, m2=False, use_kernel=None):
     """Per-line decode: lines -> samples.
 
     pixels [L, W] uint8, coords [L, 2] int32, ref/black/white [L] int32.
     Number of blocks = L - 112.
+
+    use_kernel (default: True on a CUDA tensor) binarizes through K1
+    (ops/fused_binarize) with every line a frame of its own, [L, 1, W]
+    with per-line coordinates and levels; False runs the plain per-line
+    grid, bz.stc007_read_pcm_grid, as the JAX package does.
     """
-    batch = bz.stc007_read_pcm_grid(pixels, coords, ref_level, black, white,
-                                    hyst_limit=hyst_limit,
-                                    shift_limit=shift_limit)
+    if use_kernel is None:
+        use_kernel = pixels.device.type == "cuda"
+    if use_kernel:
+        batch = bz.LineBatch(*(t[:, 0] for t in fb.stc007_fused_decode_frames(
+            pixels[:, None], coords, ref_level, black, white,
+            hyst_limit=hyst_limit, shift_limit=shift_limit)))
+    else:
+        batch = bz.stc007_read_pcm_grid(pixels, coords, ref_level, black,
+                                        white, hyst_limit=hyst_limit,
+                                        shift_limit=shift_limit)
     crc_ok = batch.valid[:, None].expand(-1, stc007.N_WORDS)
     n_blocks = pixels.shape[0] - stc007.MIN_DEINT_DATA
     shifts = torch.arange(n_blocks, dtype=torch.int32, device=pixels.device)

@@ -16,8 +16,7 @@ ffmpegwrapper.h:128-132) duplicates each pixel horizontally.
 
 Port of sdvpcmdecoder_tpu/pipeline/ingest.py.  The native loader is the
 JAX package's native/loader.cpp, built by ops/stitch_native.build into
-build/native/ (a failed build raises).  AVI and Matroska captures wait
-for their readers' port (ROADMAP Queue 1); Y4M, raw and streams work.
+build/native/ (a failed build raises).
 """
 from __future__ import annotations
 
@@ -25,6 +24,7 @@ import ctypes
 import mmap
 import os
 import subprocess
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -32,13 +32,21 @@ import numpy as np
 MIN_WIDTH_FOR_SINGLE = 960  # ffmpegwrapper.h:128-132 double-width rule
 
 _NATIVE = None
+_NATIVE_LOCK = threading.Lock()
 
 
 def _native_lib():
-    """Build (once) and load the native loader; a failed build raises."""
-    global _NATIVE
+    """Build (once) and load the native loader; a failed build raises.
+    Concurrent callers (the shards of parallel/multichip.py) load it
+    once."""
     if _NATIVE is not None:
         return _NATIVE
+    with _NATIVE_LOCK:
+        return _NATIVE if _NATIVE is not None else _native_lib_locked()
+
+
+def _native_lib_locked():
+    global _NATIVE
     from ..ops import stitch_native
     lib = stitch_native.build("loader.cpp", flag_chain=(("-O3",),),
                               libs=("-lpthread",)).path
@@ -379,16 +387,18 @@ def _is_stream(p):
 
 
 def open_capture(path, raw_size=None, **kw):
-    """Reader factory: AVI and Matroska containers raise until their
-    readers are ported (pipeline/avi.py, pipeline/mkv.py); FIFOs /
+    """Reader factory: AVI and Matroska containers decode in-process
+    (pipeline/avi.py, pipeline/mkv.py — no FFmpeg needed); FIFOs /
     character devices / "-" stream through StreamReader (live ingest);
     everything else goes through VideoReader (Y4M / raw gray8 + `.pts`
     sidecar)."""
     p = str(path)
-    if p.lower().endswith((".avi", ".mkv", ".mka", ".webm")):
-        raise NotImplementedError(
-            f"{p}: AVI/Matroska ingest is not ported yet (ROADMAP Queue 1, "
-            "'AVI/MKV ingest and the codecs'); transcode to Y4M")
+    if p.lower().endswith(".avi"):
+        from .avi import AVIReader
+        return AVIReader(p, raw_size=raw_size, **kw)
+    if p.lower().endswith((".mkv", ".mka", ".webm")):
+        from .mkv import MKVReader
+        return MKVReader(p, raw_size=raw_size, **kw)
     if _is_stream(p):
         import sys
         src = sys.stdin.buffer if p in ("-", "pipe:", "pipe:0") else p

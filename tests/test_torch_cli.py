@@ -6,9 +6,9 @@ STC-007 goes: the parser's flags and defaults, every backend's WAV
 byte-equal to the JAX CLI's at fast, normal and insane, the flags that
 reach the drivers (--per-line-agc, --force-coords, --format m2, --frames,
 --no-ecc, --cwd, --stats, --dump-lines, --render-dir, --checkpoint), and
-exit code 2 with a message for what is not ported (PCM-1/16x0, ArVid, the
-probe, AVI/Matroska), for --backend device with a flag it does not take,
-and for --device cuda on a machine without a card.
+ArVid's dump and the container fall-through equal to the JAX CLI's, exit
+code 2 for --backend device with a flag it does not take, and for
+--device cuda on a machine without a card.
 """
 import os
 import re
@@ -267,23 +267,38 @@ def test_cli_checkpoint_resume_matches_uninterrupted(tmp_path):
 
 @pytest.mark.parametrize("fmt", ["arvid"])
 def test_unported_formats_exit_2(tmp_path, capsys, fmt):
+    """--format arvid is ported now: on an STC-007 capture it dumps what
+    the JAX CLI dumps (the prototype's words, no WAV)."""
     cap = small_capture(tmp_path, sigma=0.0, n_frames=1)
-    out = tmp_path / "o.wav"
-    rc = tcli.main([cap, "-o", str(out), "--format", fmt, "--device",
-                    "cpu"])
-    err = capsys.readouterr().err
-    assert rc == 2 and not out.exists()
-    assert f"--format {fmt}" in err and "not ported" in err
+    dumps = []
+    for tag, main, extra in (("j", jcli.main, []),
+                             ("t", tcli.main, ["--device", "cpu"])):
+        out = tmp_path / f"{tag}.txt"
+        assert main([cap, "-o", str(out), "--format", fmt] + extra) == 0
+        dumps.append((out.read_bytes(), (tmp_path / f"{tag}.bin")
+                      .read_bytes()))
+    assert dumps[0] == dumps[1] and len(dumps[1][0]) > 0
+    assert "not ported" not in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("ext", [".avi", ".mkv"])
 def test_unported_containers_exit_2(tmp_path, capsys, ext):
+    """AVI/Matroska decode in-process now; a file that is no container
+    falls through to the FFmpeg transcode as in the JAX CLI, and without
+    ffmpeg both CLIs return 2 with the same message."""
     src = tmp_path / f"cap{ext}"
     src.write_bytes(b"RIFFfake")
-    rc = tcli.main([str(src), "-o", str(tmp_path / "o.wav"), "--device",
-                    "cpu"])
-    err = capsys.readouterr().err
-    assert rc == 2 and "AVI/Matroska" in err and "not ported" in err
+    import shutil
+    rcs, errs = [], []
+    for main, extra in ((jcli.main, []), (tcli.main, ["--device", "cpu"])):
+        from unittest import mock
+        with mock.patch.object(shutil, "which", lambda name: None):
+            rcs.append(main([str(src), "-o", str(tmp_path / "o.wav")]
+                            + extra))
+        errs.append(capsys.readouterr().err)
+    assert rcs == [2, 2] and errs[0] == errs[1]
+    assert "in-process container decode unavailable" in errs[1]
+    assert "not ported" not in errs[1]
 
 
 def test_cli_transcode_invoked_and_graceful_without_ffmpeg(tmp_path,

@@ -116,7 +116,7 @@ with tempfile.TemporaryDirectory() as tmp:
                          "cpu"]) == 0
         same = open(f"{tmp}/cli.wav", "rb").read() == wavs["tpu"]
         assert same or quality == "insane", (backend, quality)
-    assert cli_main([cap, "--format", "arvid", "--device", "cpu"]) == 2
+    assert cli_main([cap, "--format", "arvid", "--device", "cpu"]) == 0
 
 # PCM-1 / PCM-16x0: the probe, BatchDecoder, the chip-resident PCM driver
 # and the CLI.
@@ -137,6 +137,50 @@ with tempfile.TemporaryDirectory() as tmp:
                               ("pcm16x0", p16, "device")):
         assert cli_main([cap, "-o", f"{tmp}/c.wav", "--format", fmt,
                          "--backend", backend, "--device", "cpu"]) == 0
+
+# Containers and their codecs, ArVid, V4L2 capture, multi-GPU and the
+# device histogram.
+from sdvpcmdecoder_tpu_torch.formats import arvid
+from sdvpcmdecoder_tpu_torch.ops import agc
+from sdvpcmdecoder_tpu_torch.parallel import mesh as pm
+from sdvpcmdecoder_tpu_torch.parallel.multichip import ShardedBatchDecoder
+from sdvpcmdecoder_tpu_torch.pipeline import (arvid_pipe, avi, capture,
+                                              ffv1, huffyuv, ingest,
+                                              lagarith, mkv, utvideo)
+small = np.random.default_rng(3).integers(0, 256, (2, 16, 24), np.uint8)
+with tempfile.TemporaryDirectory() as tmp:
+    for codec in ("Y800", "HFYU", "LAGS", "ULY0", "FFV1"):
+        for ext, writer in ((".avi", avi.write_avi), (".mkv", mkv.write_mkv)):
+            path = f"{tmp}/s{codec}{ext}"
+            writer(path, small, codec=codec, drops=[1])
+            with ingest.open_capture(path) as rd:
+                got = rd.read_frames(0, 3)
+            assert np.array_equal(got[[0, 2]], small) and not got[1].any()
+    cap = chip_smoke.write_capture(f"{tmp}/a.y4m", 2, 294, seed=1)
+    with ingest.open_capture(cap) as rd:
+        avi.write_avi(f"{tmp}/a.avi", rd.read_frames(0, 2), codec="ULY0")
+    assert cli_main([f"{tmp}/a.avi", "-o", f"{tmp}/a.wav", "--device",
+                     "cpu", "--quality", "fast"]) == 0
+    acap, acd = chip_smoke.write_arvid_capture(f"{tmp}/ar.y4m", n_frames=1)
+    assert cli_main([acap, "-o", f"{tmp}/ar.txt", "--format", "arvid",
+                     "--force-coords", f"{acd[0]}:{acd[1]}", "--device",
+                     "cpu"]) == 0
+    jobs = [(cap, f"{tmp}/m0.wav"), (f"{tmp}/a.avi", f"{tmp}/m1.wav")]
+    sh = ShardedBatchDecoder(jobs, devices=["cpu", "cpu"], hyst_limit=1,
+                             shift_limit=1, frames_per_round=2)
+    sh.run()
+    assert open(f"{tmp}/m0.wav", "rb").read() == \
+        open(f"{tmp}/m1.wav", "rb").read() and sh.stats[0] == 4
+grid = pm.decode_mesh(2, seq=2, devices=["cpu"])
+assert grid.shape == (1, 2)
+sel = capture.CaptureSelector(lambda: [])
+sel.set_pal()
+assert (sel.config.width, sel.config.height) == (720, 576)
+hist = agc.line_histograms_device(px3[0, :4], torch.ones(4, W, dtype=bool))
+assert int(hist.sum()) == 4 * W and hist.dtype == torch.int32
+assert arvid.BITS_PCM_DATA == 144 and callable(arvid_pipe.decode_frames)
+assert all(m.__name__.startswith("sdvpcmdecoder_tpu_torch.")
+           for m in (ffv1, huffyuv, lagarith, utvideo))
 assert not any(m == "jax" or m.startswith(("jax.", "sdvpcmdecoder_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
 print("SLICE_OK")
@@ -168,7 +212,11 @@ def test_no_source_imports_jax_or_the_jax_package():
             "ops/line_decode_np.py", "ops/device_pcm.py",
             "pipeline/stitcher_pcm1.py", "pipeline/stitcher_pcm16x0.py",
             "pipeline/v2d_other.py", "pipeline/probe.py",
-            "pipeline/device_pcm.py"} <= names
+            "pipeline/device_pcm.py", "pipeline/avi.py", "pipeline/mkv.py",
+            "pipeline/huffyuv.py", "pipeline/utvideo.py",
+            "pipeline/lagarith.py", "pipeline/ffv1.py", "formats/arvid.py",
+            "pipeline/arvid_pipe.py", "pipeline/capture.py",
+            "parallel/mesh.py", "parallel/multichip.py"} <= names
     for path in files:
         text = path.read_text()
         assert "import jax" not in text, path

@@ -241,5 +241,9 @@ def test_ingest_loader_reads_like_jax(tmp_path):
     with tingest.VideoReader(path) as r, jingest.VideoReader(path) as j:
         assert r._h and (r.width, r.height, r.n_frames) == (16, 10, 3)
         np.testing.assert_array_equal(r.read_frames(1, 5), j.read_frames(1, 5))
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        tingest.open_capture(str(tmp_path / "c.avi"))
+    path = str(tmp_path / "c.avi")   # containers open in-process now
+    from sdvpcmdecoder_tpu_torch.pipeline import avi as tavi
+    tavi.write_avi(path, frames, codec="Y800")
+    with tingest.open_capture(path) as r, jingest.open_capture(path) as j:
+        assert type(r) is tavi.AVIReader
+        np.testing.assert_array_equal(r.read_frames(0, 3), j.read_frames(0, 3))
