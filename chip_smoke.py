@@ -4,7 +4,7 @@
 Builds the CUDA kernels of the STC-007 decode chain from csrc/ (K1, the
 per-frame binarize, and K2, the per-group binarize: two entry points of one
 source) and, with g++ at the same time, the native stitcher core from
-sdvpcmdecoder_tpu/native/stitchcore.cpp; checks each kernel against its
+the port's own native/stitchcore.cpp; checks each kernel against its
 plain torch version on the card (also at the round's shape, NTSC lines,
 the marker fallback's 64 x 1 batches, coordinates with stop < start, and
 rows too narrow or misaligned for the TMA), checks with torch.profiler
@@ -31,10 +31,14 @@ Matroska files of each lossless codec through the CLI and the driver,
 each codec's read time, dropped slots, 1 and 2 concurrent
 ShardedBatchDecoder shards on one card, the mesh step, a 720-px capture,
 the ArVid dump and Queue 3's paths (M2, BFF, 16-bit, forced coordinates,
-several captures at once), all held to the JAX package's hashes. Times
-the kernels, their plain versions, the sweep, the chain, the round, the
-driver, the codecs and the CLI. Needs one NVIDIA GPU; from the
-repository root:
+several captures at once), all held to the JAX package's hashes; and
+(S1) a copy of sdvpcmdecoder_tpu_torch/ and this script alone, run in a
+subprocess with JAX and the JAX package blocked, which builds K1, the
+native core and the loader into its own build/, holds K1 against plain
+and decodes golden captures through the CLI, the driver, PCM-1 and a
+ULY0 AVI. Times the kernels, their plain versions, the sweep, the chain,
+the round, the driver, the codecs, the CLI and S1's builds. Needs one
+NVIDIA GPU; from the repository root:
 
     python3 chip_smoke.py
 
@@ -1520,6 +1524,150 @@ def ingest_phases(dev, card, tmp, golden, big, cli_noisy, y4m_cli, encodes):
                                 cli_y4m_fps=y4m_fps)
 
 
+# ---- S1: a tree that holds only the port --------------------------------
+# The child runs with JAX and the JAX package blocked: importing either
+# raises ImportError.
+PORT_ONLY_CHILD = ('import sys; sys.modules["jax"] = None; '
+                   'sys.modules["sdvpcmdecoder_tpu"] = None; '
+                   'import chip_smoke; chip_smoke.port_only_child()')
+
+
+def port_only_tree(dst):
+    """Copy sdvpcmdecoder_tpu_torch/ and this script, and nothing else of
+    the repository (no JAX package, no build/), into the directory dst.
+    Returns dst as a Path."""
+    import shutil
+    here, dst = Path(__file__).resolve().parent, Path(dst)
+    shutil.copytree(here / "sdvpcmdecoder_tpu_torch",
+                    dst / "sdvpcmdecoder_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(here / "chip_smoke.py", dst)
+    return dst
+
+
+def port_only_phase():
+    """S1: run port_only_child in a subprocess whose working directory is
+    a port_only_tree in a temporary directory, with no PYTHONPATH.
+    Returns (the child's JSON result, the phase's wall seconds, copy and
+    subprocess included)."""
+    import os
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tree = port_only_tree(tmp)
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        proc = subprocess.run([sys.executable, "-c", PORT_ONLY_CHILD],
+                              cwd=tree, env=env, capture_output=True,
+                              text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    for ln in lines[:-1]:
+        print(f"[S1] {ln}")
+    check(proc.returncode == 0 and lines, f"S1 port-only tree: exit "
+          f"{proc.returncode}: {proc.stderr[-3000:]}")
+    return json.loads(lines[-1]), wall
+
+
+def port_only_child():
+    """S1's body, in a tree of sdvpcmdecoder_tpu_torch/ and chip_smoke.py
+    alone: builds K1 with nvcc and, beside it, the native core and loader
+    with g++ into the tree's own empty build/; holds K1 against its plain
+    version on the round's shape; then, K1's launches counted from 0,
+    decodes the golden PAL capture through the CLI under tpu and device
+    and through DeviceBatchDecoder, the PCM-1 golden under --backend
+    device, and the golden PAL frames as a ULY0 AVI under tpu (the native
+    codec), each WAV held to the JAX package's hash. Prints its result as
+    one JSON line, the last."""
+    import hashlib
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    import sdvpcmdecoder_tpu_torch
+    from sdvpcmdecoder_tpu_torch.ops import _kernels
+    from sdvpcmdecoder_tpu_torch.ops import fused_binarize as fb
+    from sdvpcmdecoder_tpu_torch.ops import stitch_native as sn
+    from sdvpcmdecoder_tpu_torch.pipeline import ingest
+
+    here = Path.cwd().resolve()
+    check(not (here / "sdvpcmdecoder_tpu").exists()
+          and not any((Path(p or ".").resolve() / "sdvpcmdecoder_tpu")
+                      .exists() for p in sys.path),
+          "S1: the JAX package is reachable from the port-only tree")
+    check(not (here / "build").exists(), "S1: the tree holds a build/")
+    for what, path in (("the package", sdvpcmdecoder_tpu_torch.__file__),
+                       ("chip_smoke.py", __file__),
+                       ("native/", sn.NATIVE_SRC),
+                       ("build/native/", sn.BUILD_DIR),
+                       ("csrc/", _kernels.CSRC),
+                       ("build/kernels/", _kernels.BUILD_DIR)):
+        check(Path(path).resolve().is_relative_to(here),
+              f"S1: {what} lies outside the tree: {path}")
+    dev = torch.device(DEVICE)
+    torch.cuda.set_device(dev)
+
+    with ThreadPoolExecutor(2) as pool:   # g++ beside nvcc
+        core = pool.submit(sn.build, "stitchcore.cpp")
+        loader = pool.submit(ingest.build_loader)
+        builds = {"nvcc_k1": _kernels.build("stc007_binarize"),
+                  "gxx_core": core.result(), "gxx_loader": loader.result()}
+    for name, b in builds.items():
+        check(b.seconds > 0 and b.path.resolve().is_relative_to(
+            here / "build"), f"S1: {name} was not built into the tree's "
+              f"build/: {b.path}")
+    check(sn.available() and Path(sn._load()._name) == builds["gxx_core"]
+          .path, "S1: the native core loaded is not the tree's")
+
+    nr = ROUND_FRAMES
+    px, cd, _, _ = encode_frames(nr, 30.0, seed=1, device=dev)
+    err = compare_k1(f"port-only tree, {nr} frames sigma=30", px, cd,
+                     frame_levels(nr, dev), NORMAL)
+    del px, cd
+
+    k1 = lambda: fb.stc007_fused_decode_frames.launches
+    hashes, launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        pal = write_capture(os.path.join(tmp, "pal.y4m"), 12, 294, seed=1)
+        pcm1 = write_pcm1_capture(os.path.join(tmp, "pcm1.y4m"),
+                                  **PCM_GOLDEN["pcm1"][2])
+        uly0 = write_container(os.path.join(tmp, "pal_ULY0.avi"),
+                               capture_frames(12, 294, seed=1), "ULY0")
+        runs = {   # name: (CLI arguments or None for the driver, sha256)
+            "cli_tpu": ([pal, "--backend", "tpu"], GOLDEN_CLI_SHA256["pal"]),
+            "cli_device": ([pal, "--backend", "device"],
+                           GOLDEN_CLI_SHA256["pal"]),
+            "driver": (None, GOLDEN_SHA256["pal"]),
+            "pcm1_device": ([pcm1, "--format", "pcm1", "--backend",
+                             "device"], GOLDEN_PCM_SHA256["pcm1"]),
+            "uly0_avi_tpu": ([uly0, "--backend", "tpu"],
+                             GOLDEN_CLI_SHA256["pal"])}
+        fb.stc007_fused_decode_frames.launches = 0
+        for name, (argv, want) in runs.items():
+            n0 = k1()
+            if argv is None:
+                wavs, _, _, _ = driver_run(
+                    [pal], tmp, name, True, lines_per_field=294,
+                    hyst_limit=2, shift_limit=1, frames_per_round=5)
+                data = wavs[0]
+            else:
+                out = os.path.join(tmp, f"{name}.wav")
+                rc, _ = cli_run(argv + ["-o", out])
+                check(rc == 0, f"S1 {name}: exit code {rc}")
+                data = open(out, "rb").read()
+            digest = hashlib.sha256(data).hexdigest()
+            launches[name] = k1() - n0
+            hashes[name] = digest == want
+            check(hashes[name], f"S1 {name}: WAV sha256 {digest} is not "
+                  f"the JAX package's {want}")
+            # The PCM grid is plain torch: no K1 there (as in P2).
+            check((launches[name] > 0) == (name != "pcm1_device"),
+                  f"S1 {name}: {launches[name]} K1 launches")
+        total = k1()
+    print(json.dumps(dict(
+        builds={k: dict(seconds=b.seconds, path=str(b.path.relative_to(
+            here))) for k, b in builds.items()},
+        max_abs_err=err, hashes=hashes, launches=launches,
+        k1_launches=total)))
+
+
 def main():
     check(torch.cuda.is_available(), "no CUDA device "
           "(torch.cuda.is_available() is false)")
@@ -2274,9 +2422,22 @@ def main():
         (cli_fps["tpu"], wq[0]), encodes)
     errs += errs_ingest
     tmpdir.cleanup()
+
+    # -- phase S1: a tree that holds only the port ---------------------------
+    s1, s1_wall = port_only_phase()
+    errs.append(s1["max_abs_err"])
+    b = s1["builds"]
+    print(f"[S1] port-only tree (sdvpcmdecoder_tpu_torch/ and chip_smoke.py, "
+          f"JAX and the JAX package blocked): builds nvcc K1 "
+          f"{b['nvcc_k1']['seconds']} s, g++ core "
+          f"{b['gxx_core']['seconds']} s, g++ loader "
+          f"{b['gxx_loader']['seconds']} s (g++ beside nvcc, into the tree's "
+          f"own build/); WAV hashes equal the JAX package's: {s1['hashes']}; "
+          f"K1 == plain; K1 launches {s1['k1_launches']} "
+          f"{s1['launches']}; phase wall {s1_wall} s on {card}")
     check(tree_digest(sn.NATIVE_SRC) == native_before,
-          "sdvpcmdecoder_tpu/native/ changed during the run")
-    print("[native] sdvpcmdecoder_tpu/native/ unchanged by the run")
+          "the port's native/ changed during the run")
+    print("[native] sdvpcmdecoder_tpu_torch/native/ unchanged by the run")
 
     launches_k1 = {"decode_frames": launches,
                    "steady_round_packed": launches_round,
@@ -2292,7 +2453,8 @@ def main():
                    # counted (pcm_phases checks it).
                    "pcm_device": launches_pcm["pcm_device"],
                    "pcm_cli": launches_pcm["pcm_cli"],
-                   **launches_ingest}
+                   **launches_ingest,
+                   "port_only_tree": s1["k1_launches"]}
     # ms: the kernel's device time at the main path's shape (the round's
     # 16 x 588 x 1152, NORMAL); the other shapes and modes in "timings".
     # No single PyTorch call computes the trial grid: library_ms is null.

@@ -12,13 +12,15 @@ numpy/torch path (ops/deinterleave.py) remains the reference
 implementation; tests assert bit-identity.  Set SDV_NO_NATIVE=1 to
 disable.
 
-One source of truth: the core is the JAX package's
-sdvpcmdecoder_tpu/native/stitchcore.cpp, compiled where it lies and never
-written to.  The library goes to build/native/ at the checkout root under
-a name that carries a hash of the source, the compiler flags and the host
-CPU (the flags include -march=native), so an edited source is rebuilt and
-a library built for another machine is never loaded.  A failed build
-raises: there is no stale-library fallback.
+The core is the port's own native/stitchcore.cpp (beside native/
+loader.cpp, which pipeline/ingest.py builds through `build`), copied from
+sdvpcmdecoder_tpu/native/ and edited only in the port from then on;
+nothing is read from the JAX package.  The sources are compiled where
+they lie and never written to.  The library goes to build/native/ at the
+checkout root under a name that carries a hash of the source, the
+compiler flags and the host CPU (the flags include -march=native), so an
+edited source is rebuilt and a library built for another machine is
+never loaded.  A failed build raises: there is no stale-library fallback.
 
 GF(2) tables are pushed from formats/gf2.py at load time (one source of
 truth for the Q-code matrices, stc007deinterleaver.cpp:4-75).
@@ -40,9 +42,8 @@ import numpy as np
 
 from ..formats import gf2
 
-ROOT = Path(__file__).resolve().parents[2]
-NATIVE_SRC = ROOT / "sdvpcmdecoder_tpu" / "native"
-BUILD_DIR = ROOT / "build" / "native"
+NATIVE_SRC = Path(__file__).resolve().parent.parent / "native"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 CXX = "g++"
 # The core is integer-only, so -march=native is bit-safe.  Each step of
 # the chain drops one flag the compiler may refuse: -march, then -fopenmp
@@ -72,7 +73,7 @@ def _host_tag() -> str:
 
 
 def build(source: str, flag_chain=FLAG_CHAIN, libs=()) -> Build:
-    """Compile sdvpcmdecoder_tpu/native/<source> with g++ into build/native/
+    """Compile the port's native/<source> with g++ into build/native/
     (once per digest; concurrent processes wait on one lock).  Raises when
     every flag set of the chain fails."""
     src = NATIVE_SRC / source

@@ -15,8 +15,8 @@ Double-width upscaling of narrow captures (<960 px,
 ffmpegwrapper.h:128-132) duplicates each pixel horizontally.
 
 Port of sdvpcmdecoder_tpu/pipeline/ingest.py.  The native loader is the
-JAX package's native/loader.cpp, built by ops/stitch_native.build into
-build/native/ (a failed build raises).
+port's own native/loader.cpp (copied from the JAX package's), built by
+ops/stitch_native.build into build/native/ (a failed build raises).
 """
 from __future__ import annotations
 
@@ -45,12 +45,17 @@ def _native_lib():
         return _NATIVE if _NATIVE is not None else _native_lib_locked()
 
 
+def build_loader():
+    """Compile native/loader.cpp (ops/stitch_native.build: once per digest,
+    raises on failure); returns its Build."""
+    from ..ops import stitch_native
+    return stitch_native.build("loader.cpp", flag_chain=(("-O3",),),
+                               libs=("-lpthread",))
+
+
 def _native_lib_locked():
     global _NATIVE
-    from ..ops import stitch_native
-    lib = stitch_native.build("loader.cpp", flag_chain=(("-O3",),),
-                              libs=("-lpthread",)).path
-    L = ctypes.CDLL(str(lib))
+    L = ctypes.CDLL(str(build_loader().path))
     L.sdv_open.restype = ctypes.c_void_p
     L.sdv_open.argtypes = [ctypes.c_char_p, ctypes.c_int, ctypes.c_int,
                            ctypes.c_int]

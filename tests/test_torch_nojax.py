@@ -1,10 +1,19 @@
 """The port runs without JAX and without the JAX package: a GPU machine
 has no JAX, so sdvpcmdecoder_tpu_torch and chip_smoke.py must import
-neither."""
+neither, and a tree that holds only the two of them builds and runs."""
+import fnmatch
+import hashlib
+import importlib
+import os
 import re
 import subprocess
 import sys
+import tomllib
 from pathlib import Path
+
+import pytest
+
+import chip_smoke
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "sdvpcmdecoder_tpu_torch"
@@ -183,15 +192,89 @@ assert all(m.__name__.startswith("sdvpcmdecoder_tpu_torch.")
            for m in (ffv1, huffyuv, lagarith, utvideo))
 assert not any(m == "jax" or m.startswith(("jax.", "sdvpcmdecoder_tpu."))
                for m in sys.modules if sys.modules[m] is not None)
+# Everything ran from the tree in the working directory: its package, its
+# native sources and the libraries it built.
+import sdvpcmdecoder_tpu_torch
+here = Path.cwd().resolve()
+assert Path(sdvpcmdecoder_tpu_torch.__file__).resolve().is_relative_to(here)
+assert sn.NATIVE_SRC.is_relative_to(here)
+for lib in (sn._load()._name, ingest._native_lib()._name):
+    assert Path(lib).parent == here / "build" / "native", lib
 print("SLICE_OK")
 """
 
 
-def test_slice_runs_with_jax_blocked():
-    proc = subprocess.run([sys.executable, "-c", SLICE], cwd=ROOT,
+@pytest.mark.parametrize("tree", ["in_repo", "port_only"])
+def test_slice_runs_with_jax_blocked(tree, tmp_path):
+    env = dict(os.environ)
+    if tree == "port_only":
+        cwd = chip_smoke.port_only_tree(tmp_path)
+        env.pop("PYTHONPATH", None)
+    else:
+        cwd = ROOT
+    proc = subprocess.run([sys.executable, "-c", SLICE], cwd=cwd, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "SLICE_OK" in proc.stdout
+    if tree == "port_only":
+        assert not (cwd / "sdvpcmdecoder_tpu").exists()
+        built = sorted(p.name for p in (cwd / "build" / "native").iterdir())
+        for stem in ("libstitchcore-", "libloader-"):
+            assert any(n.startswith(stem) and n.endswith(".so")
+                       for n in built), built
+
+
+def test_native_sources_are_the_ports_own(monkeypatch, tmp_path):
+    """Every source the port compiles lies in the port and ships as its
+    package data; the port has its own console script."""
+    from sdvpcmdecoder_tpu_torch.ops import _kernels
+    from sdvpcmdecoder_tpu_torch.ops import stitch_native as sn
+    from sdvpcmdecoder_tpu_torch.pipeline import ingest
+
+    assert sn.NATIVE_SRC.is_relative_to(PORT)
+    # Record what the compilers are handed, from empty build dirs, and
+    # fail every compile: nothing is built.
+    compiled = []
+
+    def fake_run(cmd, **kw):
+        compiled.extend(Path(a) for a in cmd if a.endswith((".cpp", ".cu")))
+        return subprocess.CompletedProcess(cmd, 1, "", "not compiled")
+
+    monkeypatch.setattr(subprocess, "run", fake_run)
+    monkeypatch.setattr(sn, "BUILD_DIR", tmp_path / "native")
+    monkeypatch.setattr(sn, "_LIB", None)
+    monkeypatch.setattr(ingest, "_NATIVE", None)
+    monkeypatch.setattr(_kernels, "BUILD_DIR", tmp_path / "kernels")
+    monkeypatch.setattr(_kernels, "_nvcc", lambda: "nvcc")
+    monkeypatch.delenv("SDV_NO_NATIVE", raising=False)
+    builds = [sn._load, ingest._native_lib] + [
+        lambda name=name: _kernels.build.__wrapped__(name)
+        for name in _kernels.SIGNATURES]
+    for call in builds:
+        n = len(compiled)
+        with pytest.raises(RuntimeError):
+            call()
+        assert len(compiled) > n, call
+    assert {p.name for p in compiled} >= {"stitchcore.cpp", "loader.cpp"}
+
+    project = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    globs = project["tool"]["setuptools"]["package-data"][PORT.name]
+    for src in set(compiled):
+        assert src.is_file() and src.is_relative_to(PORT), src
+        rel = src.relative_to(PORT).as_posix()
+        assert any(fnmatch.fnmatch(rel, g) for g in globs), (rel, globs)
+
+    entry = project["project"]["scripts"]["sdvpcmdecoder-tpu-torch"]
+    module, _, attr = entry.partition(":")
+    cli = importlib.import_module("sdvpcmdecoder_tpu_torch.__main__")
+    assert getattr(importlib.import_module(module), attr) is cli.main
+
+    # The copy is still byte for byte the JAX package's native/; this
+    # check goes when the port's copy is first edited.
+    jax_native = ROOT / "sdvpcmdecoder_tpu" / "native"
+    for name in ("stitchcore.cpp", "loader.cpp"):
+        assert hashlib.sha256((sn.NATIVE_SRC / name).read_bytes()).digest() \
+            == hashlib.sha256((jax_native / name).read_bytes()).digest()
 
 
 def test_no_source_imports_jax_or_the_jax_package():

@@ -1,14 +1,15 @@
 """The port's JAX-free loader of the native core, against the JAX loader.
 
-ops/stitch_native.py of the port compiles sdvpcmdecoder_tpu/native/
-stitchcore.cpp where it lies into build/native/, never into the JAX
-package. Both libraries are loaded in this one process: they are distinct
-files, so each holds its own GF(2) tables, and every binding must return
-the JAX loader's arrays (values and dtypes). Also here: the port's
+ops/stitch_native.py of the port compiles its own native/stitchcore.cpp
+where it lies into build/native/, never into either package. Both
+libraries, built from two source files, are loaded in this one process:
+they are distinct files, so each holds its own GF(2) tables, and every
+binding must return the JAX loader's arrays (values and dtypes). Also here: the port's
 correct_blocks_cwd, control_block_fields and pick_ref_sweep against JAX's.
 """
 import hashlib
 import shutil
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -58,21 +59,25 @@ def test_build_goes_to_build_dir_and_leaves_the_jax_package(monkeypatch,
     # are missing or stale; let them settle first, then hash.
     assert jsn.available()
     jingest._native_lib()
-    before = _tree_digest(tsn.NATIVE_SRC)
+    trees = (tsn.NATIVE_SRC, Path(jsn.__file__).resolve().parents[1]
+             / "native")
+    assert trees[0] != trees[1]
+    before = [_tree_digest(t) for t in trees]
+    # The shipped library of the JAX package is never what the port loads:
+    # its core comes from the checkout's build/native/.
+    assert tsn.available()
+    assert Path(tsn._load()._name).parent \
+        == Path(tsn.__file__).resolve().parents[2] / "build" / "native"
     monkeypatch.setattr(tsn, "BUILD_DIR", tmp_path / "native")
     core = tsn.build("stitchcore.cpp")
-    loader = tsn.build("loader.cpp", flag_chain=(("-O3",),),
-                       libs=("-lpthread",))
-    assert _tree_digest(tsn.NATIVE_SRC) == before
+    loader = tingest.build_loader()
+    assert [_tree_digest(t) for t in trees] == before
     for b in (core, loader):
         assert b.path.parent == tmp_path / "native" and b.seconds > 0
         assert b.flags and b.path.name.endswith(".so")
     assert core.path.name.startswith("libstitchcore-")
     # Once built, the same digest is reused without compiling.
     assert tsn.build("stitchcore.cpp") == (core.path, 0.0, ())
-    # The shipped library of the JAX package is never what the port loads.
-    assert tsn.available()
-    assert "sdvpcmdecoder_tpu/native" not in tsn._load()._name
 
 
 @pytest.mark.parametrize("cxx", ["/nonexistent/g++", "false"])
