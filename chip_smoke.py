@@ -18,7 +18,12 @@ round (steady_round_packed), 4 chained rounds of 16 frames on a staged
 the chip-resident driver (DeviceBatchDecoder), y4m captures in and WAVs
 out: two golden captures whose WAVs must hash as the JAX package's do,
 2 x 128 frames timed with K1 and with the plain binarize, and a noisy
-capture that takes the marker-fallback re-decode. Then the reference-level
+capture that takes the marker-fallback re-decode. The drivers replay each
+round as a CUDA graph (ops/round_graph), as every phase runs them; G1 holds
+the STC-007 driver's graph route against its eager route (graphs=False):
+every round's outputs byte-equal, 5 timed pairs, launches, device idle
+share and the host's time per round, and the chained round alone; G2 does
+the same for the PCM-1 and PCM-16x0 driver. Then the reference-level
 sweep, K1 launched once per level against the plain sweep (every field at
 every level, 64 launches and no copy per call, both routes timed); the
 driver at the CLI's default quality (the prescan sweep and the sweep of
@@ -556,15 +561,197 @@ def driver_device_busy(jobs, tmp, **kw):
     """(device busy ms, CUDA kernel and copy events, wall ms) of one
     kernel-path driver run under torch.profiler: the sum of the CUDA rows'
     self device time."""
+    tr = traced(lambda: driver_run(jobs, tmp, "prof", True, **kw))
+    return tr["busy_ms"], tr["kernel_rows"] + tr["copy_rows"], \
+        tr["result"][3] * 1e3
+
+
+def traced(fn):
+    """One call of fn under torch.profiler (CPU and CUDA activity): its
+    result; the device's busy ms (the CUDA rows' self device time); the
+    CUDA kernel rows and copy/set rows; and the host's calls into the CUDA
+    runtime that put work on the card (kernel and graph launches, copies
+    and sets), by name."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _, _, _, wall = driver_run(jobs, tmp, "prof", True, **kw)
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    return (sum(e.self_device_time_total for e in rows) / 1e3,
-            sum(e.count for e in rows), wall * 1e3)
+        torch.cuda.synchronize()   # the tracer is up before a launch
+        result = fn()
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    dev_rows = [e for e in rows if e.device_type == DeviceType.CUDA]
+    copies = [e for e in dev_rows if "Memcpy" in e.key or "Memset" in e.key]
+    host = {e.key: e.count for e in rows
+            if e.device_type == DeviceType.CPU and e.key.startswith("cu")
+            and any(w in e.key for w in ("Launch", "Memcpy", "Memset"))}
+    return dict(result=result,
+                busy_ms=sum(e.self_device_time_total for e in dev_rows)
+                / 1e3,
+                kernel_rows=sum(e.count for e in dev_rows)
+                - sum(e.count for e in copies),
+                copy_rows=sum(e.count for e in copies), host_calls=host,
+                graph_launches=host.get("cudaGraphLaunch", 0))
+
+
+GRAPH_PAIRS = 5   # G1/G2: graphs=True and graphs=False, alternating
+
+
+def graph_round_stats(graph_round, eager_round):
+    """One round as a replay of its graph (graph_round: run_round through
+    a RoundGraphs, its key already captured) against the eager round: the
+    outputs equal, CUDA-event ms of each (median of 5, alternating) and
+    one call of each under torch.profiler, the replay one graph
+    launch."""
+    flat = lambda r: [r] if isinstance(r, torch.Tensor) \
+        else [r[0], r[1], *r[2]]
+    check(all(torch.equal(a, b) for a, b in zip(flat(graph_round()),
+                                                flat(eager_round()))),
+          "the replayed round differs from the eager round")
+    graph_ms, eager_ms = median_ms_abab(graph_round, eager_round)
+    tr_g, tr_e = traced(graph_round), traced(eager_round)
+    check(tr_g["graph_launches"] == 1,
+          f"{tr_g['graph_launches']} graph launches in one replay")
+    return dict(graph_ms=graph_ms, eager_ms=eager_ms,
+                graph_kernel_rows=tr_g["kernel_rows"],
+                eager_kernel_rows=tr_e["kernel_rows"],
+                graph_host_calls=tr_g["host_calls"],
+                eager_host_calls=tr_e["host_calls"],
+                graph_busy_ms=tr_g["busy_ms"], eager_busy_ms=tr_e["busy_ms"])
+
+
+def round_graph_phase(tag, module, cls, caps, tmp, card, n_frames, **kw):
+    """Phases G1 (STC-007) and G2 (PCM): the driver `cls` over `caps`
+    with each round a CUDA graph replay (graphs=True) and with its ops
+    eager (graphs=False). One recorded run per route: every round's
+    outputs (`module.run_round`'s, copied as they return) byte-equal;
+    then GRAPH_PAIRS timed pairs in alternating order (WAVs equal, K1
+    launches per run, the host ms of each run_round call by kind: a key's
+    eager first use, its capture (with the replay that follows it) or a
+    replay), one profiled run per route (device busy ms and idle share,
+    CUDA kernel rows, host runtime calls per round), the graph counters.
+    Returns the measurements and the WAVs."""
+    from sdvpcmdecoder_tpu_torch.ops import fused_binarize as fb
+    k1 = lambda: fb.stc007_fused_decode_frames.launches
+    run = lambda g, name: timed_driver_run(cls, caps, tmp, f"{tag}_{name}",
+                                         graphs=g, **kw)
+    recorded, wav = {}, {}
+    orig = module.run_round
+
+    def recording(*a, **k):
+        res = orig(*a, **k)
+        ts = [res] if isinstance(res, torch.Tensor) \
+            else [res[0], res[1], *res[2]]
+        recorded[k["graphs"] is not None].append([t.clone() for t in ts])
+        return res
+
+    module.run_round = recording
+    try:
+        for g in (True, False):
+            recorded[g] = []
+            wav[g], dec, _, _ = run(g, f"rec{int(g)}")
+    finally:
+        module.run_round = orig
+    check(wav[True] == wav[False], f"{tag}: the graph route's WAVs differ "
+          f"from the eager route's")
+    check(len(recorded[True]) == len(recorded[False]) > 0,
+          f"{tag}: {len(recorded[True])} rounds under graphs, "
+          f"{len(recorded[False])} eager")
+    for r, (a, b) in enumerate(zip(recorded[True], recorded[False])):
+        for i, (x, y) in enumerate(zip(a, b)):
+            check(x.dtype == y.dtype and torch.equal(x, y),
+                  f"{tag}: round {r} output {i} differs between the graph "
+                  f"and the eager route")
+    n_rounds = len(recorded[True])
+    del recorded
+    call_ms = {True: {}, False: {}}
+
+    def timed(*a, **k):
+        g = k["graphs"]
+        seen = (g.eager_rounds, g.captures) if g is not None else None
+        t0 = time.perf_counter()
+        res = orig(*a, **k)
+        ms = (time.perf_counter() - t0) * 1e3
+        kind = "eager" if g is None or g.eager_rounds > seen[0] \
+            else "capture" if g.captures > seen[1] else "replay"
+        call_ms[g is not None].setdefault(kind, []).append(ms)
+        return res
+
+    fps = {True: [], False: []}
+    walls = {True: [], False: []}
+    launches = {True: set(), False: set()}
+    counters = set()
+    module.run_round = timed
+    try:
+        for pair in range(GRAPH_PAIRS):
+            for g in ((True, False) if pair % 2 == 0 else (False, True)):
+                n0 = k1()
+                wavs, dec, _, wall = run(g, f"t{int(g)}")
+                launches[g].add(k1() - n0)
+                check(wavs == wav[True], f"{tag}: timed run's WAVs differ "
+                      f"(graphs={g})")
+                fps[g].append(n_frames / wall)
+                walls[g].append(wall)
+                if g:
+                    gr = dec.graphs
+                    counters.add((gr.eager_rounds, gr.captures, gr.replays))
+                    check(gr.eager_rounds == len(gr._graphs)
+                          and gr.replays == n_rounds - gr.eager_rounds,
+                          f"{tag}: {n_rounds} rounds, eager_rounds "
+                          f"{gr.eager_rounds} over {len(gr._graphs)} keys,"
+                          f" replays {gr.replays}")
+    finally:
+        module.run_round = orig
+    check(len(launches[True]) == 1 and launches[True] == launches[False],
+          f"{tag}: K1 launches per run {launches}")
+    prof = {}
+    for g in (True, False):
+        tr = traced(lambda: run(g, f"p{int(g)}"))
+        dec = tr["result"][1]
+        replays = dec.graphs.replays if g else 0
+        check(tr["graph_launches"] == replays,
+              f"{tag}: {tr['graph_launches']} graph launches for "
+              f"{replays} replayed rounds")
+        med = statistics.median(walls[g]) * 1e3
+        prof[g] = dict(busy_ms=tr["busy_ms"], idle_share=1 - tr["busy_ms"]
+                       / med, kernel_rows_per_round=tr["kernel_rows"]
+                       / n_rounds, copy_rows=tr["copy_rows"],
+                       host_calls_per_round={
+                           k: v / n_rounds
+                           for k, v in sorted(tr["host_calls"].items())},
+                       graph_launches=tr["graph_launches"])
+    res = {}
+    for g, route in ((True, "graph"), (False, "eager")):
+        q1, med, q3 = quartiles(fps[g])
+        res[route] = dict(fps_median=med, fps_q1=q1, fps_q3=q3,
+                          fps_runs=fps[g], k1_launches=min(launches[g]),
+                          round_host_ms={
+                              kind: dict(calls=len(v),
+                                         median=statistics.median(v),
+                                         total=sum(v) / GRAPH_PAIRS)
+                              for kind, v in call_ms[g].items()},
+                          **prof[g])
+    (eager_rounds, captures, replays), = counters
+    res.update(rounds=n_rounds, eager_rounds=eager_rounds,
+               captures=captures, replays=replays, card=card)
+    for route in ("graph", "eager"):
+        r = res[route]
+        print(f"[{tag}] {route} route, {len(caps)} x {n_frames // len(caps)}"
+              f" frames: {r['fps_median']} frames/s (median of "
+              f"{GRAPH_PAIRS}, quartiles {r['fps_q1']}, {r['fps_q3']}; "
+              f"decode wall, staging apart); K1 launches {r['k1_launches']}"
+              f" a run; device busy {r['busy_ms']} ms = idle share "
+              f"{r['idle_share']} of the median wall; per round "
+              f"{r['kernel_rows_per_round']} CUDA kernel rows and host "
+              f"calls {r['host_calls_per_round']} (torch.profiler); host ms "
+              f"of run_round by kind (calls over the {GRAPH_PAIRS} runs, "
+              f"median, total a run) {r['round_host_ms']} on {card}")
+    print(f"[{tag}] {n_rounds} rounds a run: eager_rounds {eager_rounds}, "
+          f"captures {captures}, replays {replays} (= rounds less the "
+          f"eager first use of each key); every round's outputs and the "
+          f"WAVs byte-equal between the routes; one cudaGraphLaunch per "
+          f"replayed round")
+    return res, wav[True]
 
 
 # ---- PCM-1 / PCM-16x0 (phases P1-P5) ---------------------------------------
@@ -748,8 +935,8 @@ def pcm_round_params(coords, refs, blacks, whites):
     return p
 
 
-def pcm_driver_run(cls, jobs, tmp, tag, **kw):
-    """One run of a PCM driver class (BatchDecoder or
+def timed_driver_run(cls, jobs, tmp, tag, **kw):
+    """One run of a driver class (BatchDecoder, DeviceBatchDecoder or
     DevicePCMBatchDecoder) over `jobs` on the card: (WAV bytes per job,
     the decoder, staging seconds, decode wall seconds), split as
     driver_run splits them (BatchDecoder stages nothing)."""
@@ -880,13 +1067,13 @@ def pcm_phases(dev, card, tmp):
                 for i in range(PCM_DRIVER_CAPS)]
         kw = dict(fmt=fmt, hyst_limit=FAST[0], shift_limit=FAST[1],
                   frames_per_round=PCM_ROUND_FRAMES)
-        ref, _, _, ref_wall = pcm_driver_run(
+        ref, _, _, ref_wall = timed_driver_run(
             batch_driver.BatchDecoder, caps, tmp, f"ref_{fmt}",
             backend="native", device=dev, **kw)
         n_fr = PCM_DRIVER_CAPS * PCM_DRIVER_FRAMES
         fps, stages, stage_s = [], [], []
         for r in range(PCM_TIMED_RUNS + 1):      # run 0: the warm-up
-            wavs, dec, stage, wall = pcm_driver_run(
+            wavs, dec, stage, wall = timed_driver_run(
                 device_pcm.DevicePCMBatchDecoder, caps, tmp,
                 f"dev_{fmt}", device=dev, **kw)
             check(wavs == ref, f"P3 {fmt}: device driver WAVs differ "
@@ -956,6 +1143,34 @@ def pcm_phases(dev, card, tmp):
               f"fast on {PCM_GRID_FRAMES} frames on {card}")
     device_k1 = k1() - n0
 
+    # -- G2: the PCM driver's rounds as CUDA graphs against eager -----------
+    g2 = {}
+    for fmt in PCM_FORMATS:
+        caps = [os.path.join(tmp, f"drv_{fmt}_{i}.y4m")
+                for i in range(PCM_DRIVER_CAPS)]
+        g2[fmt], _ = round_graph_phase(
+            f"G2-{fmt}", device_pcm, device_pcm.DevicePCMBatchDecoder, caps,
+            tmp, card, PCM_DRIVER_CAPS * PCM_DRIVER_FRAMES, fmt=fmt,
+            hyst_limit=FAST[0], shift_limit=FAST[1],
+            frames_per_round=PCM_ROUND_FRAMES, device=dev)
+        inputs = pcm_grid_inputs(caps[0], fmt, dev)
+        px = inputs[0][:PCM_ROUND_FRAMES]
+        params = pcm_round_params(*(t[:PCM_ROUND_FRAMES]
+                                    for t in inputs[1:]))
+        from sdvpcmdecoder_tpu_torch.ops.round_graph import RoundGraphs
+        graphs = RoundGraphs(dev)
+        kw = dict(fmt=fmt, shift_limit=FAST[1], hyst_limit=FAST[0])
+        graph_round = lambda: device_pcm.run_round(px, params, graphs=graphs,
+                                                   **kw)
+        graph_round(), graph_round()   # the key's eager first use, capture
+        g2[fmt]["round"] = graph_round_stats(
+            graph_round, lambda: device_pcm.run_round(px, params, **kw))
+        print(f"[G2-round] pcm_round_packed {fmt} {PCM_ROUND_FRAMES} frames "
+              f"fast: {g2[fmt]['round']} (CUDA-event ms, median of 5, "
+              f"alternating; kernel rows, host calls and device ms of one "
+              f"call under torch.profiler) on {card}")
+    device_k1 += k1() - n0
+
     # -- P4: noisy captures through the device driver -----------------------
     # The sigma 14 / 10 captures of tests/test_device_pcm.py decode with
     # every line valid at hyst 0 / shift 1; the PCM_NOISE_REFINE ones fail
@@ -968,10 +1183,10 @@ def pcm_phases(dev, card, tmp):
                 PCM_NOISY_FRAMES, 40 + i, noise) for i in range(2)]
             kw = dict(fmt=fmt, hyst_limit=0, shift_limit=1,
                       frames_per_round=3, device=dev)
-            ref, _, _, _ = pcm_driver_run(
+            ref, _, _, _ = timed_driver_run(
                 batch_driver.BatchDecoder, caps, tmp, f"nref_{fmt}",
                 backend="native", **kw)
-            wavs, dec, _, _ = pcm_driver_run(
+            wavs, dec, _, _ = timed_driver_run(
                 device_pcm.DevicePCMBatchDecoder, caps, tmp, f"ndev_{fmt}",
                 **kw)
             check(wavs == ref, f"P4 {fmt} sigma={noise}: WAVs differ from "
@@ -1018,7 +1233,7 @@ def pcm_phases(dev, card, tmp):
     print(f"[pcm] K1 launches on the PCM paths: driver {device_k1}, CLI "
           f"{cli_k1} (the PCM grid is plain torch)")
     print("[pcm-json] " + json.dumps(dict(
-        card=card, driver=timings,
+        card=card, driver=timings, graphs=g2,
         cli_fps={f"{f}/{b}": v for (f, b), v in cli_fps.items()})))
     return dict(pcm_device=device_k1, pcm_cli=cli_k1)
 
@@ -1026,15 +1241,9 @@ def pcm_phases(dev, card, tmp):
 def pcm_device_busy(cls, jobs, tmp, **kw):
     """driver_device_busy for a PCM driver class: (device busy ms, CUDA
     events, decode wall ms) of one run under torch.profiler."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, _, _, wall = pcm_driver_run(cls, jobs, tmp, "prof", **kw)
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    return (sum(e.self_device_time_total for e in rows) / 1e3,
-            sum(e.count for e in rows), wall * 1e3)
+    tr = traced(lambda: timed_driver_run(cls, jobs, tmp, "prof", **kw))
+    return tr["busy_ms"], tr["kernel_rows"] + tr["copy_rows"], \
+        tr["result"][3] * 1e3
 
 
 # ---- Containers, ArVid, multi-GPU and Queue 3's paths (phases C1-C9) -------
@@ -2004,6 +2213,28 @@ def main():
             use_kernel=use_kernel, chained=True, tables=tables)
 
     rk_ms, rp_ms = median_ms_abab(one_round(True), one_round(False))
+    # The same chained round as a CUDA graph: warmed (eager first use,
+    # capture), then each call one replay with its copies in and out.
+    from sdvpcmdecoder_tpu_torch.ops.round_graph import RoundGraphs
+    graphs = RoundGraphs(dev)
+
+    def graph_round():
+        return dd.run_round(
+            cpx[F:2 * F], par1, state1, rows, en_p=True, en_q=True,
+            m2=False, hyst_limit=NORMAL[0], shift_limit=NORMAL[1],
+            use_kernel=True, chained=True, tables=tables, graphs=graphs)
+
+    graph_round(), graph_round()   # the key's eager first use, capture
+    n0 = fb.stc007_fused_decode_frames.launches
+    g1_round = graph_round_stats(graph_round, one_round(True))
+    n_k1 = fb.stc007_fused_decode_frames.launches - n0
+    check(n_k1 == 16, f"G1 round: K1 counted {n_k1} times for 16 rounds")
+    print(f"[G1-round] steady_round_packed chained round {F}x{PAL_LINES}x"
+          f"{WIDTH} NORMAL with K1: {g1_round} (CUDA-event ms, median of "
+          f"5, alternating; kernel rows, host calls and device ms of one "
+          f"call under torch.profiler); K1 counted once a round either way"
+          f" on {card}")
+    del graphs
     print(f"[time] steady_round_packed chained round {F}x{PAL_LINES}x"
           f"{WIDTH} NORMAL: kernel path {rk_ms} ms = {F / rk_ms * 1e3} "
           f"frames/s; plain path {rp_ms} ms = {F / rp_ms * 1e3} frames/s "
@@ -2126,6 +2357,15 @@ def main():
           f"every round after each capture's first chained; every line "
           f"valid; K1 launches {launches_driver} = {n_rounds} rounds + "
           f"{n_fb} fallback batches")
+
+    # -- phase G1: the driver's rounds as CUDA graphs against eager ---------
+    g1, wg1 = round_graph_phase(
+        "G1", dd, dd.DeviceBatchDecoder, big, tmp, card, n_fr,
+        device=DEVICE, use_kernel=True, **dkw)
+    check(wg1 == wk and g1["graph"]["k1_launches"] == launches_driver,
+          f"G1: WAVs or K1 launches ({g1['graph']['k1_launches']}) differ "
+          f"from phase 12's")
+    g1["round"] = g1_round
 
     # -- phase 13: a noisy capture (fallback frames, marker re-decode) -----
     nkw = dict(lines_per_field=294, hyst_limit=2, shift_limit=1,
@@ -2455,6 +2695,7 @@ def main():
                    "pcm_cli": launches_pcm["pcm_cli"],
                    **launches_ingest,
                    "port_only_tree": s1["k1_launches"]}
+    print("[graphs-json] " + json.dumps(dict(G1=g1)))
     # ms: the kernel's device time at the main path's shape (the round's
     # 16 x 588 x 1152, NORMAL); the other shapes and modes in "timings".
     # No single PyTorch call computes the trial grid: library_ms is null.

@@ -11,6 +11,8 @@ parity of an AND-masked count, in int32.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -107,10 +109,26 @@ def matmul_bits(bits: torch.Tensor, matrix) -> torch.Tensor:
     and a float one would depend on the TF32 setting.
     """
     bits = bits.to(torch.int32)
-    m = torch.as_tensor(matrix, dtype=torch.int32, device=bits.device)
+    m = _matrix_on(matrix, bits.device)
     cols = [(bits & m[:, j]).sum(-1, dtype=torch.int32) & 1
             for j in range(m.shape[1])]
     return torch.stack(cols, dim=-1)
+
+
+def _matrix_on(matrix, device) -> torch.Tensor:
+    """A GF(2) matrix as int32 on `device`. A host matrix is uploaded once
+    per device and content: an upload from pageable memory waits for the
+    device's queue, and a CUDA graph capture refuses it."""
+    if isinstance(matrix, torch.Tensor):
+        return matrix.to(device=device, dtype=torch.int32)
+    a = np.ascontiguousarray(matrix)
+    return _upload(a.shape, a.dtype.str, a.tobytes(), device)
+
+
+@functools.lru_cache(maxsize=64)
+def _upload(shape, dtype, data, device):
+    host = np.frombuffer(data, dtype).reshape(shape).astype(np.int32)
+    return torch.as_tensor(host, device=device)
 
 
 def word_to_bits(words: torch.Tensor) -> torch.Tensor:

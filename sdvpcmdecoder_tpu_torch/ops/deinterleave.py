@@ -115,11 +115,17 @@ def _taps(device):
                         device=device) * stc007.INTERLEAVE_OFS
 
 
+@functools.lru_cache(maxsize=None)
+def _f1_shifts_on(device):
+    # Uploaded once per device: a CUDA graph capture refuses an upload.
+    return torch.as_tensor(stc007.F1_S_OFFSETS, dtype=torch.int32,
+                           device=device)
+
+
 def _to16(w, c, s_words, s_crc):
     """16-bit PCM-F1: 14-bit word<<2 + 2 LSBs from the same line's S-word
     (stc007deinterleaver.cpp:1195-1274); Q slot zeroed and valid."""
-    shifts = torch.as_tensor(stc007.F1_S_OFFSETS, dtype=torch.int32,
-                             device=w.device)
+    shifts = _f1_shifts_on(w.device)
     w16 = ((w[..., :7] << stc007.F1_WORD_OFS)
            + ((s_words >> shifts) & stc007.F1_S_MASK))
     c16 = c[..., :7] & s_crc

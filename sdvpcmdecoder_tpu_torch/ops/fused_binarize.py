@@ -15,6 +15,7 @@ per level (the sweep is no kernel of its own in the JAX package either).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import threading
@@ -31,11 +32,39 @@ MAX_TILE_LINES = 32   # one warp per item, one line per lane
 # Guards the launch counters: threads on one card (the shards of
 # parallel/multichip.py) launch concurrently, and `+=` is not atomic.
 _COUNT_LOCK = threading.Lock()
+# This thread's CUDA graph capture in progress, if any: its tally.
+_DEFERRED = threading.local()
 
 
 def _count(wrapper):
+    tally = getattr(_DEFERRED, "tally", None)
+    if tally is not None:
+        tally[wrapper] = tally.get(wrapper, 0) + 1
+        return
     with _COUNT_LOCK:
         wrapper.launches += 1
+
+
+@contextlib.contextmanager
+def launches_deferred(tally):
+    """Inside, this thread's wrapper calls add to `tally` (wrapper ->
+    launches) instead of their counters: under a CUDA graph capture a
+    wrapper runs but its kernel does not launch. `count_launches` adds
+    the tally once per replay of the graph (ops/round_graph.py)."""
+    prev = getattr(_DEFERRED, "tally", None)
+    _DEFERRED.tally = tally
+    try:
+        yield tally
+    finally:
+        _DEFERRED.tally = prev
+
+
+def count_launches(tally):
+    """One replay of a graph whose capture recorded `tally`: each of its
+    kernels launched that many times."""
+    with _COUNT_LOCK:
+        for wrapper, n in tally.items():
+            wrapper.launches += n
 
 
 def _check(cond: bool, msg: str):

@@ -9,9 +9,10 @@ Port of sdvpcmdecoder_tpu/pipeline/device_driver.py:
            binarize (the CUDA kernel K1 on a GPU) + duplicate detection +
            DUAL-resolution eval of every speculated seam/res/conv queue
            for all frame pairs of the round, in one call on resident
-           data.  Its output buffer is copied back asynchronously (a
-           non_blocking copy into pinned memory and a CUDA event) while
-           other captures compute.
+           data, replayed as one CUDA graph (ops/round_graph) where the
+           JAX package calls its jitted round.  Its output buffer is
+           copied back asynchronously (a non_blocking copy into pinned
+           memory and a CUDA event) while other captures compute.
   replay:  the unchanged host stage machine (pipeline/stitcher_stc007)
            consumes the speculative results with seam_backend="tpu-spec"
            -- every geometry fact is verified, so output is bit-identical
@@ -31,6 +32,7 @@ Reference scope: the full doFrameReassemble chain
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -38,7 +40,8 @@ import torch
 
 from ..formats import stc007
 from ..ops import device_stitch as ds
-from ..utils.host import HostCopy, host_call
+from ..ops.round_graph import RoundGraphs
+from ..utils.host import HostCopy, host_call, upload
 from . import batch_driver, ingest, v2d
 from . import stitcher_stc007 as st
 
@@ -48,6 +51,13 @@ MDD = stc007.MIN_DEINT_DATA
 
 def _gather_sample(px, idx):
     return px[:, idx, :]
+
+
+@functools.lru_cache(maxsize=None)
+def _prescan_idx(prescan_rows, L, device):
+    """prescan_rows(L) on `device`, uploaded once: an upload from pageable
+    memory waits for the rounds in the device's queue."""
+    return torch.as_tensor(prescan_rows(L), device=device)
 
 
 class StagedDeviceDecoder(batch_driver.BatchDecoder):
@@ -277,20 +287,40 @@ class RoundState(NamedTuple):
                               device)
 
 
+# run_round's outputs that outlive a graph replay, cloned after it:
+# words_flat (the lazy stores and the fallback read it rounds later) and
+# the next round's state. `out` is copied to the host before the next
+# replay.
+KEPT_OUTPUTS = (1, 2, 3, 4, 5)
+
+
 def run_round(pixels, params, state: RoundState, rows: _RoundRows, *,
               en_p, en_q, m2, hyst_limit, shift_limit, use_kernel,
-              chained, tables):
+              chained, tables, graphs=None):
     """One steady round on the pixels' device: params is the round's int32
     parameter vector (ds.round_param_layout; numpy or a tensor), tables a
-    ds.RoundTables on that device. Returns (out [N] int32 buffer,
-    words_flat [F*Ls, 8], the next round's RoundState)."""
-    params = torch.as_tensor(params, dtype=torch.int32, device=pixels.device)
-    out, wflat, wtail, oktail, cn_w, cn_ok = ds.steady_round_packed(
-        pixels, params, state.prev_words, state.prev_ok8, state.carry_w,
-        state.carry_ok, rows.carry_next_rows, rows.g1, rows.g2,
-        rows.nb_seam, tables.silent(m2), B_conv=rows.B_conv, en_p=en_p,
-        en_q=en_q, m2=m2, hyst_limit=hyst_limit, shift_limit=shift_limit,
-        use_kernel=use_kernel, chained=chained, tables=tables)
+    ds.RoundTables on that device, graphs a RoundGraphs that replays the
+    round (None: run it eagerly). Returns (out [N] int32 buffer,
+    words_flat [F*Ls, 8], the next round's RoundState); under `graphs`,
+    `out` is the graph's buffer, which the next replay writes over."""
+    def body(pixels, params, prev_words, prev_ok8, carry_w, carry_ok):
+        return ds.steady_round_packed(
+            pixels, params, prev_words, prev_ok8, carry_w, carry_ok,
+            rows.carry_next_rows, rows.g1, rows.g2, rows.nb_seam,
+            tables.silent(m2), B_conv=rows.B_conv, en_p=en_p, en_q=en_q,
+            m2=m2, hyst_limit=hyst_limit, shift_limit=shift_limit,
+            use_kernel=use_kernel, chained=chained, tables=tables)
+
+    params = torch.as_tensor(params, dtype=torch.int32)
+    if graphs is None:
+        res = body(pixels, upload(params, pixels.device), *state)
+    else:
+        # jax.jit's static arguments, and the tables the body closes over.
+        key = ("steady_round_packed", en_p, en_q, m2, hyst_limit,
+               shift_limit, use_kernel, chained, id(rows), id(tables))
+        res = graphs.run(key, body, (pixels, params, *state),
+                         clone=KEPT_OUTPUTS)
+    out, wflat, wtail, oktail, cn_w, cn_ok = res
     return out, wflat, RoundState(wtail, oktail, cn_w, cn_ok)
 
 
@@ -307,12 +337,15 @@ class DeviceBatchDecoder(StagedDeviceDecoder):
     `device` is required: there is no "cuda when available" default.
     `use_kernel` (default: True on a CUDA device) routes the round's
     binarize and the marker-fallback re-decode through the CUDA kernel
-    K1 (ops/fused_binarize) instead of the plain torch grid.
+    K1 (ops/fused_binarize) instead of the plain torch grid. With
+    `graphs` (the default) each round replays as a CUDA graph
+    (`self.graphs`, an ops.round_graph.RoundGraphs; its CPU stand-in on
+    the CPU); graphs=False runs the round's ops eagerly.
     """
 
     def __init__(self, jobs, lines_per_field=294, hyst_limit=2,
                  shift_limit=1, frames_per_round=16, use_kernel=None,
-                 hbm_frames=256, *, device, **kw):
+                 hbm_frames=256, *, device, graphs=True, **kw):
         from ..ops import stitch_native as _sn
         self.device = torch.device(device)
         if use_kernel is None:
@@ -331,6 +364,7 @@ class DeviceBatchDecoder(StagedDeviceDecoder):
         self.shift_limit = shift_limit
         self._round_hbm_frames(frames_per_round, hbm_frames)
         self.use_kernel = use_kernel
+        self.graphs = RoundGraphs(self.device) if graphs else None
         self.tables = ds.RoundTables().to(self.device)
         self._rows_cache = {}
         self._zero_carry = (
@@ -354,9 +388,8 @@ class DeviceBatchDecoder(StagedDeviceDecoder):
                 # Pre-gather round 0's prescan rows now; the async
                 # copies complete while the other captures stage.
                 F0 = min(frames_per_round, j.chunk_len)
-                idx = torch.as_tensor(v2d.prescan_rows(Ls),
-                                      device=self.device)
-                s0 = _gather_sample(j.px_dev[:F0], idx)
+                s0 = _gather_sample(j.px_dev[:F0], _prescan_idx(
+                    v2d.prescan_rows, Ls, self.device))
                 j.next_sample = (0, HostCopy(s0))
         self._await_staging()
 
@@ -415,7 +448,7 @@ class DeviceBatchDecoder(StagedDeviceDecoder):
             lpf = Ls // 2
             lo = j.frames_read - j.chunk_base
             px = j.px_dev[lo:lo + F]
-            idx = torch.as_tensor(v2d.prescan_rows(Ls), device=self.device)
+            idx = _prescan_idx(v2d.prescan_rows, Ls, self.device)
             with self._stage("prescan"):
                 if not j.driver.search_needed():
                     # Good-params skip: no sample gather, no read-back,
@@ -496,8 +529,8 @@ class DeviceBatchDecoder(StagedDeviceDecoder):
                 en_p=sti.en_p, en_q=sti.en_q, m2=sti.mode_m2,
                 hyst_limit=self.hyst_limit, shift_limit=self.shift_limit,
                 use_kernel=self.use_kernel, chained=chained,
-                tables=self.tables)
-            out = HostCopy(out)
+                tables=self.tables, graphs=self.graphs)
+            out = HostCopy(out)   # before any other round replays
             prefetch = []
             if n_head:
                 prefetch.append((0, n_head, HostCopy(wflat[:n_head * Ls])))

@@ -4,9 +4,10 @@ Port of sdvpcmdecoder_tpu/pipeline/device_pcm.py, the PCM formats'
 counterpart of pipeline/device_driver.DeviceBatchDecoder: each capture's
 pixels are split to fields and put on `device` once per bounded chunk,
 every round of frames decodes with ONE call
-(ops/device_pcm.pcm_round_packed — the trial-grid binarize + packing),
-and ONE asynchronous int32 copy (utils.host.HostCopy) carries
-words/CRCs/validity/control bits back.  These formats stitch per frame
+(ops/device_pcm.pcm_round_packed — the trial-grid binarize + packing —
+replayed as one CUDA graph, ops/round_graph, where the JAX package calls
+its jitted round), and ONE asynchronous int32 copy (utils.host.HostCopy)
+carries words/CRCs/validity/control bits back.  These formats stitch per frame
 (no cross-frame interleave), so the host replay is simply the existing
 stitchers — their native steady-frame calls (pcm1_steady_frame /
 pcm16x0_steady_frame, stitchcore.cpp) consume the device words and emit
@@ -31,8 +32,28 @@ import numpy as np
 import torch
 
 from ..ops import device_pcm as dp
-from ..utils.host import HostCopy
-from .device_driver import StagedDeviceDecoder, _gather_sample
+from ..ops.round_graph import RoundGraphs
+from ..utils.host import HostCopy, upload
+from .device_driver import StagedDeviceDecoder, _gather_sample, _prescan_idx
+
+
+def run_round(pixels, params, *, fmt, shift_limit, hyst_limit,
+              graphs=None):
+    """One pcm_round_packed round on the pixels' device: params its int32
+    vector (dp.round_param_layout; numpy or a tensor), graphs a
+    RoundGraphs that replays it (None: run it eagerly). Returns the
+    round's int32 buffer; under `graphs` it is the graph's buffer, which
+    the next replay writes over."""
+    def body(pixels, params):
+        return (dp.pcm_round_packed(pixels, params, fmt=fmt,
+                                    shift_limit=shift_limit,
+                                    hyst_limit=hyst_limit),)
+
+    params = torch.as_tensor(params, dtype=torch.int32)
+    if graphs is None:
+        return body(pixels, upload(params, pixels.device))[0]
+    key = ("pcm_round_packed", fmt, shift_limit, hyst_limit)
+    return graphs.run(key, body, (pixels, params))[0]
 
 
 class DevicePCMBatchDecoder(StagedDeviceDecoder):
@@ -41,12 +62,15 @@ class DevicePCMBatchDecoder(StagedDeviceDecoder):
     fmt in ("pcm1", "pcm16x0", "pcm1630"); pixels are staged on the
     device in bounded chunks of `hbm_frames` frames, so capture length
     is unbounded (these formats stitch per frame — no cross-chunk state
-    beyond the stitcher's own host-side histories).
+    beyond the stitcher's own host-side histories). With `graphs` (the
+    default) each round replays as a CUDA graph (`self.graphs`, an
+    ops.round_graph.RoundGraphs; its CPU stand-in on the CPU);
+    graphs=False runs the round's ops eagerly.
     """
 
     def __init__(self, jobs, fmt, hyst_limit=0, shift_limit=2,
                  frames_per_round=16, hbm_frames=256, *, device="cuda",
-                 **kw):
+                 graphs=True, **kw):
         if fmt not in ("pcm1", "pcm16x0", "pcm1630"):
             raise ValueError(f"DevicePCMBatchDecoder: unsupported {fmt!r}")
         self.device = torch.device(device)
@@ -57,6 +81,7 @@ class DevicePCMBatchDecoder(StagedDeviceDecoder):
         self.dec_fmt = "pcm1" if fmt == "pcm1" else "pcm16x0"
         self.hyst_limit = hyst_limit
         self.shift_limit = shift_limit
+        self.graphs = RoundGraphs(self.device) if graphs else None
         self.fetched_frames = 0   # frames copied back for refinement
         self.fetch_copies = 0     # device->host copies that carried them
         self._round_hbm_frames(frames_per_round, hbm_frames)
@@ -69,8 +94,7 @@ class DevicePCMBatchDecoder(StagedDeviceDecoder):
         self._await_staging()
 
     def _prescan_idx(self, j):
-        return torch.as_tensor(type(j.driver).prescan_rows(j.Ls),
-                               device=self.device)
+        return _prescan_idx(type(j.driver).prescan_rows, j.Ls, self.device)
 
     def _prefetch_sample(self, j, start):
         """Request the prescan rows of the round starting at `start`;
@@ -114,10 +138,10 @@ class DevicePCMBatchDecoder(StagedDeviceDecoder):
             put("blacks", np.clip(prep["blacks"], 0, 254))
             put("whites", np.clip(prep["whites"], 1, 255))
             put("usable", prep["usable"])
-            out = dp.pcm_round_packed(
-                px, torch.from_numpy(params).to(self.device),
-                fmt=self.dec_fmt, shift_limit=self.shift_limit,
-                hyst_limit=self.hyst_limit)
+            out = run_round(px, params, fmt=self.dec_fmt,
+                            shift_limit=self.shift_limit,
+                            hyst_limit=self.hyst_limit, graphs=self.graphs)
+            # Copied before any other round replays.
             j.pending = dict(F=F, px=px, prep=prep, out=HostCopy(out))
             j.frames_read += F
             self._prefetch_sample(j, j.frames_read)

@@ -6,7 +6,8 @@ torch implementation of each, so those call sites go through `host_call`:
 every numpy argument becomes a CPU tensor and every tensor result comes
 back as a numpy array, through tuples and NamedTuples both ways.
 `HostCopy` is the other direction's helper on a GPU: a device tensor on
-its way into pinned host memory.
+its way into pinned host memory; `upload` takes a host tensor to the
+device through pinned memory.
 """
 from __future__ import annotations
 
@@ -43,7 +44,10 @@ class HostCopy:
     """A device->host copy in flight (the JAX package's
     copy_to_host_async): on CUDA a non_blocking copy into pinned host
     memory and the event recorded after it; `numpy()` waits for that
-    event only.  On the CPU it is the tensor itself."""
+    event only.  On the CPU a copy of the tensor, taken now: like the
+    device's copy, it keeps the values the tensor has when the copy is
+    asked for (a round graph's output buffer is written again by the
+    next replay)."""
 
     def __init__(self, t: torch.Tensor):
         self._event = None
@@ -54,9 +58,21 @@ class HostCopy:
             self._event = torch.cuda.Event()
             self._event.record(torch.cuda.current_stream(t.device))
         else:
-            self._host = t
+            self._host = t.clone()
 
     def numpy(self) -> np.ndarray:
         if self._event is not None:
             self._event.synchronize()
         return self._host.numpy()
+
+
+def upload(t: torch.Tensor, device) -> torch.Tensor:
+    """`t` on `device`: from the host to a CUDA device by a non_blocking
+    copy from pinned memory, so the host does not wait for the device's
+    queue as it does for a copy from pageable memory. The pinned block
+    comes from torch's caching host allocator, which the copy tells not to
+    hand it out again before the copy has run."""
+    device = torch.device(device)
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)

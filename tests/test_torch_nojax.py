@@ -70,6 +70,17 @@ out, wflat, state = dd.run_round(
     m2=False, hyst_limit=4, shift_limit=2, use_kernel=True, chained=False,
     tables=ds.RoundTables())
 assert ds.unpack_round(out.numpy(), F, LF, rows.Bc)[1].all()
+# The same round through a graph (the CPU's stand-in): eager on the key's
+# first use, captured on its second, replayed after.
+from sdvpcmdecoder_tpu_torch.ops.round_graph import RoundGraphs
+graphs, tables = RoundGraphs("cpu"), ds.RoundTables()
+for _ in range(3):
+    g_out, g_wflat, _ = dd.run_round(
+        px3, params, dd.RoundState.zeros(LF, "cpu"), rows, en_p=True,
+        en_q=True, m2=False, hyst_limit=4, shift_limit=2, use_kernel=True,
+        chained=False, tables=tables, graphs=graphs)
+    assert torch.equal(g_out, out) and torch.equal(g_wflat, wflat)
+assert (graphs.eager_rounds, graphs.captures, graphs.replays) == (1, 1, 2)
 grp = fb.stc007_fused_decode(px3[0], tuple(coords[0]),
                              *(torch.full((LF,), v, dtype=torch.int32)
                                for v in (110, 20, 200)))
@@ -88,6 +99,7 @@ with tempfile.TemporaryDirectory() as tmp:
     stats = dec.run()[cap]
     back, rate = wav.read_wav(f"{tmp}/o.wav")
 assert sn.available() and dec.jobs[0].stitcher.seam_backend == "tpu-spec"
+assert dec.graphs.eager_rounds == 2   # round 0, the first chained round
 assert len(back) > 0 and rate == 44100 and stats.lines_valid == 6 * 588
 
 # The level sweep, the streaming backends and the CLI.
@@ -299,7 +311,8 @@ def test_no_source_imports_jax_or_the_jax_package():
             "pipeline/huffyuv.py", "pipeline/utvideo.py",
             "pipeline/lagarith.py", "pipeline/ffv1.py", "formats/arvid.py",
             "pipeline/arvid_pipe.py", "pipeline/capture.py",
-            "parallel/mesh.py", "parallel/multichip.py"} <= names
+            "parallel/mesh.py", "parallel/multichip.py",
+            "ops/round_graph.py"} <= names
     for path in files:
         text = path.read_text()
         assert "import jax" not in text, path
