@@ -30,7 +30,12 @@ driver at the CLI's default quality (the prescan sweep and the sweep of
 failed lines) and at INSANE (the full sweep), kernel route against plain
 route; and the CLI (sdvpcmdecoder_tpu_torch.__main__) under every backend,
 its WAVs held to the hashes of the JAX package's CLI, once as a
-`python -m` subprocess; PCM-1 and PCM-16x0 (P1-P5); then the ingest
+`python -m` subprocess; PCM-1 and PCM-16x0 (P1-P5); G3, the streaming
+backend and the stream chain with their device calls replayed as CUDA
+graphs against the same calls eager (BatchDecoder.run_tpu on the timed
+frames, the PCM-1/16x0 round loop, the 64-level sweep at NORMAL and
+INSANE, the 128-frame decode_frames and the mesh step; 5 alternating
+pairs a cell, results byte-equal, one graph launch a replay); then the ingest
 surface and multi-GPU (C1-C9): the golden PAL capture in AVI and
 Matroska files of each lossless codec through the CLI and the driver,
 each codec's read time, dropped slots, 1 and 2 concurrent
@@ -752,6 +757,207 @@ def round_graph_phase(tag, module, cls, caps, tmp, card, n_frames, **kw):
           f"WAVs byte-equal between the routes; one cudaGraphLaunch per "
           f"replayed round")
     return res, wav[True]
+
+
+# ---- G3: the streaming backend and the stream chain as CUDA graphs ---------
+MESH_GRID = (2, 4)   # G3's mesh step: D x S cells, all on the one card
+
+
+def graph_cell(tag, run, same, card, holder, frames=None):
+    """One cell of phase G3. run(graphs) is one call of the cell's path
+    with graphs on or off: (result, its decode wall in s, or None for
+    CUDA events around the call); same(a, b) compares two results;
+    `holder` is the RoundGraphs that serves the graph route (the
+    thread's). A warm-up call of the eager route and two of the graph
+    route (timed too: the first use of a key in the process pays its
+    eager run and its capture), then GRAPH_PAIRS pairs in alternating
+    order, every result equal to the eager warm-up's and K1 launches
+    equal between the routes; the graph route's eager calls, captures
+    and replays; one traced call per route (kernel rows, host runtime
+    calls, graph launches, device busy ms), its graph launches equal to
+    its replays. Returns the measurements."""
+    from sdvpcmdecoder_tpu_torch.ops import fused_binarize as fb
+    k1 = lambda: fb.stc007_fused_decode_frames.launches
+    counts = lambda: (holder.eager_rounds, holder.captures, holder.replays)
+
+    def counted(g):
+        """run(g), its wall ms and its (eager calls, captures, replays)."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        before = counts()
+        torch.cuda.synchronize()
+        start.record()
+        res, wall = run(g)
+        end.record()
+        end.synchronize()
+        ms = wall * 1e3 if wall is not None else start.elapsed_time(end)
+        return res, ms, tuple(a - b for a, b in zip(counts(), before))
+
+    n0 = k1()
+    ref, _, _ = counted(False)
+    warm_k1 = k1() - n0
+    warm, warm_ms = (0, 0, 0), []
+    for _ in range(2):
+        got, t, delta = counted(True)
+        warm = tuple(a + b for a, b in zip(warm, delta))
+        warm_ms.append(t)
+        check(same(got, ref), f"{tag}: the graph route's result differs "
+              f"from the eager route's")
+    ms = {True: [], False: []}
+    launches = {True: set(), False: set()}
+    calls = [0, 0, 0]
+    for pair in range(GRAPH_PAIRS):
+        for g in ((True, False) if pair % 2 == 0 else (False, True)):
+            n0 = k1()
+            res, t, delta = counted(g)
+            launches[g].add(k1() - n0)
+            ms[g].append(t)
+            check(same(res, ref), f"{tag}: timed call's result differs "
+                  f"(graphs={g})")
+            calls = [a + b for a, b in zip(calls, delta)]
+    check(launches[True] == launches[False] == {warm_k1},
+          f"{tag}: K1 launches per call {launches}, warm-up {warm_k1}")
+    prof = {}
+    for g in (True, False):
+        box = {}
+        tr = traced(lambda: box.setdefault("r", counted(g)))
+        replays = box["r"][2][2]
+        check(tr["graph_launches"] == replays,
+              f"{tag}: {tr['graph_launches']} graph launches for {replays} "
+              f"replays (graphs={g})")
+        med = statistics.median(ms[g])
+        prof[g] = dict(busy_ms=tr["busy_ms"], idle_share=1 - tr["busy_ms"]
+                       / med, kernel_rows=tr["kernel_rows"],
+                       copy_rows=tr["copy_rows"], host_calls=dict(sorted(
+                           tr["host_calls"].items())),
+                       graph_launches=tr["graph_launches"])
+    res = dict(card=card, k1_launches=warm_k1, warm_up=dict(
+        zip(("eager_calls", "captures", "replays"), warm), ms=warm_ms),
+        timed=dict(zip(("eager_calls", "captures", "replays"), calls)))
+    for g, route in ((True, "graph"), (False, "eager")):
+        q1, med, q3 = quartiles(ms[g])
+        r = res[route] = dict(ms_median=med, ms_q1=q1, ms_q3=q3,
+                              ms_runs=ms[g], **prof[g])
+        if frames:
+            r["fps_median"] = frames / med * 1e3
+        print(f"[{tag}] {route} route: {med} ms a call (median of "
+              f"{GRAPH_PAIRS}, quartiles {q1}, {q3}; "
+              f"{'decode wall' if frames else 'CUDA events'})"
+              + (f" = {r['fps_median']} frames/s" if frames else "")
+              + f"; traced call: {r['kernel_rows']} CUDA kernel rows, "
+              f"{r['copy_rows']} copy rows, host calls {r['host_calls']}, "
+              f"device busy {r['busy_ms']} ms = idle share "
+              f"{r['idle_share']} of the median call; K1 launches "
+              f"{warm_k1} a call on {card}")
+    print(f"[{tag}] graph route: 2 warm-up calls {res['warm_up']}, the "
+          f"{GRAPH_PAIRS} timed calls {res['timed']} (eager calls, "
+          f"captures, replays); every result byte-equal to the eager "
+          f"route's; one cudaGraphLaunch per replay")
+    return res
+
+
+def stream_graph_phase(dev, card, tmp, big, px, cd, levels):
+    """Phase G3: the streaming ("tpu") backend and the stream chain with
+    their device calls replayed as CUDA graphs (graphs=True) against the
+    same calls eager (graphs=False), in GRAPH_PAIRS alternating pairs a
+    cell (graph_cell): BatchDecoder.run_tpu on the timed 2 x 128 PAL
+    frames; the PCM-1 and PCM-16x0 round loop (grid on the card) on P5's
+    48-frame captures; V2DDriver's 64-level sweep of 16 PAL frames
+    sigma=30, NORMAL and INSANE; phase 4's 128-frame decode_frames; the
+    mesh step (MESH_GRID cells on the card). Returns the measurements and
+    the K1 launches of the phase."""
+    import os
+
+    from sdvpcmdecoder_tpu_torch.ops import fused_binarize as fb
+    from sdvpcmdecoder_tpu_torch.parallel import mesh as pm
+    from sdvpcmdecoder_tpu_torch.pipeline import batch_driver, decoder, v2d
+    from sdvpcmdecoder_tpu_torch.synth import encoder as enc
+    n0 = fb.stc007_fused_decode_frames.launches
+    out = {}
+    same_wavs = lambda a, b: a == b
+    tkw = dict(lines_per_field=294, hyst_limit=NORMAL[0],
+               shift_limit=NORMAL[1], frames_per_round=ROUND_FRAMES,
+               backend="tpu", device=DEVICE)
+
+    def driver(jobs, tag, **kw):
+        def run(g):
+            wavs, dec, _, wall = timed_driver_run(
+                batch_driver.BatchDecoder, jobs, tmp, f"{tag}{int(g)}",
+                graphs=g, **kw)
+            check(dec.stream_graphs is (holder if g else None),
+                  f"G3 {tag}: the decoder's graphs are not the thread's")
+            return wavs, wall
+        return run
+
+    from sdvpcmdecoder_tpu_torch.ops.round_graph import thread_graphs
+    holder = thread_graphs(dev)   # every graph call of the phase
+
+    out["run_tpu"] = graph_cell(
+        "G3-run_tpu", driver(big, "g3tpu", **tkw), same_wavs, card,
+        frames=DRIVER_FRAMES * len(big), holder=holder)
+    for fmt in PCM_FORMATS:
+        cap = os.path.join(tmp, f"drv_{fmt}_0.y4m")
+        out[fmt] = graph_cell(
+            f"G3-{fmt}", driver([cap], f"g3{fmt}", fmt=fmt,
+                                hyst_limit=FAST[0], shift_limit=FAST[1],
+                                frames_per_round=PCM_ROUND_FRAMES,
+                                backend="tpu", device=DEVICE),
+            same_wavs, card, frames=PCM_DRIVER_FRAMES, holder=holder)
+
+    spx, scd, _, _ = encode_frames(ROUND_FRAMES, 30.0, seed=9, device=dev)
+    sweep_in = (spx.cpu().numpy(), scd.cpu().numpy(),
+                np.full(ROUND_FRAMES, 20), np.full(ROUND_FRAMES, 200))
+    del spx, scd
+
+    def same_sweep(a, b):
+        return all(np.array_equal(x, y) and x.dtype == y.dtype
+                   for x, y in zip(a[:4], b[:4])) \
+            and torch.equal(a.words, b.words)
+
+    for mode, limits in (("NORMAL", NORMAL), ("INSANE", INSANE)):
+        drv = {g: v2d.V2DDriver(hyst_limit=limits[0], shift_limit=limits[1],
+                                device=dev, use_kernel=True, graphs=g)
+               for g in (True, False)}
+        check(drv[True].graphs is holder, "G3: the driver's graphs are not "
+              "the thread's")
+        out[f"sweep_{mode}"] = graph_cell(
+            f"G3-sweep-{mode}",
+            lambda g: (drv[g]._sweep_decode(*sweep_in), None),
+            same_sweep, card, holder=holder)
+
+    same_tensors = lambda a, b: all(
+        x.dtype == y.dtype and torch.equal(x, y) for x, y in zip(a, b))
+    out["decode_frames"] = graph_cell(
+        "G3-decode_frames",
+        lambda g: (decoder.decode_frames(px, cd, *levels, *NORMAL,
+                                         graphs=g), None),
+        same_tensors, card, frames=px.shape[0], holder=holder)
+
+    rng = np.random.default_rng(42)
+    D, S = MESH_GRID
+    n_lines = 4 * pm.HALO + 112
+    pixels, coords, _, _ = enc.encode_stream(
+        rng.integers(1, 1 << 14, 3 * n_lines),
+        rng.integers(1, 1 << 14, 3 * n_lines), width=WIDTH, ppb=8.0,
+        n_lines=n_lines, noise_sigma=20.0, rng=rng)
+    grid = pm.decode_mesh(D * S, seq=S, devices=[dev])
+    chunks, _ = pm.chunk_lines_with_halo(pixels, S)
+    Lc = chunks.shape[1]
+    per = [np.broadcast_to(a[None], (D,) + a.shape).copy() for a in (
+        chunks, pm.chunk_lines_with_halo(coords, S)[0])]
+    per += [np.full((D, S, Lc), v, np.int32) for v in (110, 20, 200)]
+    sharded = [pm.shard_captures(a, grid) for a in per]
+    steps = {g: pm.multichip_decode_step(grid, 1, 1, graphs=g)
+             for g in (True, False)}
+
+    def same_step(a, b):
+        flat = lambda r: [t for rows in r for row in rows for t in row]
+        return same_tensors(flat(a), flat(b))
+
+    out["mesh_step"] = graph_cell(
+        "G3-mesh", lambda g: (steps[g](*sharded), None), same_step, card,
+        holder=holder)
+    return out, fb.stc007_fused_decode_frames.launches - n0
 
 
 # ---- PCM-1 / PCM-16x0 (phases P1-P5) ---------------------------------------
@@ -2656,6 +2862,10 @@ def main():
     # -- phases P1-P5: PCM-1 and PCM-16x0 -----------------------------------
     launches_pcm = pcm_phases(dev, card, tmp)
 
+    # -- phase G3: the streaming backend and the stream chain as graphs ----
+    g3, launches_g3 = stream_graph_phase(dev, card, tmp, big, px, cd,
+                                         levels)
+
     # -- phases C1-C9: containers, multi-GPU, ArVid and Queue 3's paths --
     launches_ingest, errs_ingest, ingest_times = ingest_phases(
         dev, card, tmp, golden, big, cli_caps["noisy"],
@@ -2693,9 +2903,10 @@ def main():
                    # counted (pcm_phases checks it).
                    "pcm_device": launches_pcm["pcm_device"],
                    "pcm_cli": launches_pcm["pcm_cli"],
+                   "stream_graphs_G3": launches_g3,
                    **launches_ingest,
                    "port_only_tree": s1["k1_launches"]}
-    print("[graphs-json] " + json.dumps(dict(G1=g1)))
+    print("[graphs-json] " + json.dumps(dict(G1=g1, G3=g3)))
     # ms: the kernel's device time at the main path's shape (the round's
     # 16 x 588 x 1152, NORMAL); the other shapes and modes in "timings".
     # No single PyTorch call computes the trial grid: library_ms is null.

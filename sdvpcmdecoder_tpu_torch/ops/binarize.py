@@ -77,7 +77,10 @@ def bit_pixel_coords(data_start, psm, half, shift_stage, n_bits, bit_ofs,
     bit = torch.clamp(bit, max=bits_per_line - 1)
     base = (bit * psm[..., None] + half[..., None]) \
         // INT_CALC_MULT + data_start[..., None]
-    stage = torch.as_tensor(shift_stage, device=device).long()
+    # An int stage indexes the tables on the device: torch.as_tensor of a
+    # Python int on a GPU would be an upload.
+    stage = shift_stage if isinstance(shift_stage, int) \
+        else torch.as_tensor(shift_stage, device=device).long()
     sh_bg, sh_ed = _pix_shifts(device)
     bg, ed = sh_bg[stage], sh_ed[stage]
     uniform = bg == ed
@@ -178,10 +181,12 @@ def kernel_syndrome_rows():
     return np.ascontiguousarray(rows), int(synd_const), int(crc_const)
 
 
-def _table(table, host_table, device):
-    if table is None:
-        return torch.as_tensor(host_table, device=device)
-    return table
+@functools.lru_cache(maxsize=None)
+def _tables_on(device):
+    """The syndrome table and the pack weights on `device`, uploaded once:
+    a CUDA graph capture refuses an upload."""
+    return (torch.as_tensor(_syndrome_const()[0], device=device),
+            torch.as_tensor(_pack_weights(), device=device))
 
 
 def _syndrome(bits, synd_table, const=None):
@@ -248,15 +253,15 @@ def stc007_read_pcm_grid(pixel_lines, coords, ref_level, black, white,
     any_valid = valid_t.any(dim=0)
     pick = torch.where(any_valid, pick, 0)
     sel = lambda arr: torch.take_along_dim(arr, pick[None, :], dim=0)[0]
+    # Trial t is (hyst, shift) = (t // n_s, t % n_s), as hh, ss ravel.
+    pick32 = pick.to(torch.int32)
     return LineBatch(
         words=torch.take_along_dim(words_t, pick[None, :, None], dim=0)[0],
         crc_read=sel(crc_read_t),
         crc_calc=sel(crc_calc_t),
         valid=any_valid,
-        hyst=torch.as_tensor(hh.ravel(), dtype=torch.int32,
-                             device=device)[pick],
-        shift=torch.as_tensor(ss.ravel(), dtype=torch.int32,
-                              device=device)[pick],
+        hyst=pick32 // n_s,
+        shift=pick32 % n_s,
     )
 
 
@@ -328,8 +333,10 @@ def stc007_frame_decode(pixels, coords, ref_level, black, white,
     """
     n_h, n_s = hyst_limit + 1, shift_limit + 1
     device = pixels.device
-    synd_table = _table(synd_table, _syndrome_const()[0], device)
-    pack_weights = _table(pack_weights, _pack_weights(), device)
+    if synd_table is None:
+        synd_table = _tables_on(device)[0]
+    if pack_weights is None:
+        pack_weights = _tables_on(device)[1]
     px = _frame_samples(pixels, coords, n_s)                 # [F,S,L,128] u8
     chosen, pick, any_valid = _trial_grid(px, ref_level, black, white,
                                           n_h, n_s, synd_table)
@@ -365,8 +372,7 @@ def stc007_ref_sweep_decode(pixels, coords, black, white, ref_levels,
     F, L, W = pixels.shape
     n_h, n_s = hyst_limit + 1, shift_limit + 1
     device = pixels.device
-    synd_table = _table(None, _syndrome_const()[0], device)
-    pack_weights = _table(None, _pack_weights(), device)
+    synd_table, pack_weights = _tables_on(device)
     black = black.to(torch.int32)
     white = white.to(torch.int32)
     levels = torch.as_tensor(ref_levels, device=device).to(torch.int32)

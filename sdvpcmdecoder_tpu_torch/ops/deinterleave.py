@@ -116,6 +116,13 @@ def _taps(device):
 
 
 @functools.lru_cache(maxsize=None)
+def _q_banks_on(device):
+    # Uploaded once per device, as _f1_shifts_on.
+    return tuple(torch.as_tensor(m, dtype=torch.int32, device=device)
+                 for m in _q_solve_banks_stacked())
+
+
+@functools.lru_cache(maxsize=None)
 def _f1_shifts_on(device):
     # Uploaded once per device: a CUDA graph capture refuses an upload.
     return torch.as_tensor(stc007.F1_S_OFFSETS, dtype=torch.int32,
@@ -202,8 +209,8 @@ def correct_blocks(words, crc_ok, resolution, en_p=True, en_q=True,
     words [B,8] int32, crc_ok [B,8] bool. resolution/en_*/force_ecc are
     python values. q_banks: the stacked (A, B) banks of
     `_q_solve_banks_stacked` as int32 [14, 686] tensors on the words'
-    device (StreamDecoder's buffers; built when not given).
-    Returns a BlockBatch.
+    device (StreamDecoder's buffers; when not given, the copies that
+    `_q_banks_on` uploads once per device). Returns a BlockBatch.
     """
     device = words.device
     B = words.shape[0]
@@ -240,9 +247,7 @@ def correct_blocks(words, crc_ok, resolution, en_p=True, en_q=True,
         # 14x14 slice of each stacked bank (a gather; the TPU needed a
         # one-hot selection here) and do the GF(2) product as AND + parity.
         if q_banks is None:
-            q_banks = tuple(torch.as_tensor(m, dtype=torch.int32,
-                                            device=device)
-                            for m in _q_solve_banks_stacked())
+            q_banks = _q_banks_on(device)
         a3, b3 = (m.view(gf2.BITS, N_PAIRS, gf2.BITS) for m in q_banks)
         k = pair_k.long()
         sel_a = a3[:, k, :].permute(1, 0, 2)                 # [B, in, out]

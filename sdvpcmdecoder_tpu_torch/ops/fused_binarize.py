@@ -11,7 +11,11 @@ copied between host and device. On a CPU tensor it runs the plain torch
 version, binarize.stc007_frame_decode. A kernel that fails to build or
 launch raises; there is no fallback to the plain version.
 `stc007_ref_sweep_decode` is the reference-level sweep on K1: one launch
-per level (the sweep is no kernel of its own in the JAX package either).
+per level (the sweep is no kernel of its own in the JAX package either,
+but a `lax.scan` inside one compiled program). Given tensors on the
+pixels' device it neither copies nor synchronizes, so a CUDA graph can
+capture the whole sweep (pipeline/v2d.V2DDriver replays its 64 launches
+as one graph launch; ops/round_graph).
 """
 from __future__ import annotations
 
@@ -212,7 +216,10 @@ def stc007_ref_sweep_decode(pixels, coords, black, white, ref_levels,
     tensor), written into slice r of the [R, ...] outputs. Nothing is
     copied between host and device and nothing synchronizes when the
     arguments are tensors on the pixels' device (ref_levels given as a
-    host array is uploaded once, before the first launch).
+    host array is uploaded once, before the first launch): the checks
+    read shapes only and the outputs come from the caching allocator, so
+    the call can be captured whole into a CUDA graph, whose replay counts
+    R launches (launches_deferred / count_launches).
 
     Arguments and result as binarize.stc007_ref_sweep_decode, the plain
     version, which runs for a CPU tensor.

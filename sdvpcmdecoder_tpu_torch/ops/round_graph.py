@@ -1,12 +1,25 @@
-"""Rounds of the chip-resident drivers replayed as CUDA graphs.
+"""The JAX package's compiled programs replayed as CUDA graphs.
 
-The port's counterpart of the JAX package's jitted rounds
-(`jax.jit(steady_round_packed)`, sdvpcmdecoder_tpu/ops/device_stitch.py,
-and `jax.jit(pcm_round_packed)`, sdvpcmdecoder_tpu/ops/device_pcm.py):
-one executable, one dispatch per round of frames. torch runs the same
-bodies eagerly, one launch per op (about 1,650 for a 16-frame STC-007
-round). `RoundGraphs` captures a round into a CUDA graph and replays it,
-one graph launch per round:
+The port's counterpart of the JAX package's jitted programs: one
+executable, one dispatch per call. torch runs the same bodies eagerly,
+one launch per op (about 1,650 for a 16-frame STC-007 round).
+`RoundGraphs` captures a call (a "round") into a CUDA graph and replays
+it, one graph launch per call. Its callers:
+
+  * the chip-resident rounds, `jax.jit(steady_round_packed)`
+    (sdvpcmdecoder_tpu/ops/device_stitch.py; pipeline/device_driver.py)
+    and `jax.jit(pcm_round_packed)` (ops/device_pcm.py;
+    pipeline/device_pcm.py);
+  * the streaming backend's device calls (pipeline/v2d.V2DDriver): the
+    batch's trial grid with its casts (`stc007_frame_decode`, or K1), the
+    marker fallback's 64 x 1 re-decode, and the reference-level sweep
+    (the JAX package's `lax.scan`: 64 K1 launches, one graph launch);
+  * the PCM-1 / PCM-16x0 grid, `jax.jit(pcm1_frame_decode)` and
+    `jax.jit(pcm16x0_frame_decode)` (pipeline/v2d_other.PCMFrameDriver);
+  * the stream chain, `jax.jit(decode_stream)` and `jax.jit(
+    decode_frames)` (pipeline/decoder.py; parallel/mesh.py's step).
+
+The rules:
 
   * key: what the caller names (the round's static arguments, as jax.jit
     takes them, and the identity of the cached tables the round reads)
@@ -21,12 +34,17 @@ one graph launch per round:
   * outputs that outlive the round are cloned after the replay: the next
     replay of the key, or of another key of the shared pool, writes over
     the static ones. The caller copies the others (through
-    utils.host.HostCopy) before it starts another round;
+    utils.host.HostCopy, enqueued on the replay's stream) before it
+    starts another round of this object;
   * the kernel wrappers' launch counters (ops/fused_binarize) count a
     captured kernel once per replay, not at the capture;
   * captures hold a process-wide lock and run in thread-local capture
     mode, so decoder threads on one card (parallel/multichip.py) never
-    capture at once and no other thread's call breaks a capture.
+    capture at once and no other thread's call breaks a capture. One
+    thread uses an object (a memory pool each): `thread_graphs(device)`
+    is the calling thread's, which the streaming drivers and the stream
+    chain share; the chip-resident drivers hold one each for their
+    rounds.
 
 A failed capture or replay raises; nothing carries on eagerly or on the
 CPU. On a CPU device a stand-in takes the graph's place: it records the
@@ -45,6 +63,27 @@ from ..utils.host import upload
 from . import fused_binarize as fb
 
 _CAPTURE_LOCK = threading.Lock()
+_THREAD = threading.local()   # this thread's holders: device -> RoundGraphs
+
+
+def thread_graphs(device) -> "RoundGraphs":
+    """The calling thread's RoundGraphs on `device`, made on its first use.
+
+    As the JAX package's jit cache serves every caller in a process, this
+    holder serves every streaming driver (pipeline/v2d, v2d_other,
+    batch_driver) and the stream chain (pipeline/decoder) of the thread:
+    a key captured by one decoder replays for the next, and only the
+    thread's first use of a shape pays its eager run and its capture.
+    Their keys name every static argument a body reads, and each caller
+    copies what it keeps of a replay's buffers before its next call, so
+    callers never read each other's results."""
+    held = getattr(_THREAD, "by_device", None)
+    if held is None:
+        held = _THREAD.by_device = {}
+    device = torch.device(device)
+    if device not in held:
+        held[device] = RoundGraphs(device)
+    return held[device]
 
 
 class _StandIn:

@@ -76,13 +76,17 @@ def shard_captures(arr: np.ndarray, mesh):
         mesh[d, s]) for s in range(S)] for d in range(D)]
 
 
-def multichip_decode_step(mesh, hyst_limit=1, shift_limit=1):
+def multichip_decode_step(mesh, hyst_limit=1, shift_limit=1, graphs=True):
     """Build the per-device decode step over the grid.
 
     The step takes sharded pixels [D][S] of [Lc, W] plus coords/levels
     (shard_captures of [D, S, Lc, ...]); each chunk decodes on its device
     (decoder.decode_stream: K1 on a CUDA device), the valid-line count is
     summed over the whole grid, and samples are gathered along "seq".
+    The JAX package jits the whole step; here each chunk's decode_stream
+    replays as a CUDA graph (graphs=True: the calling thread's holder per
+    device, round_graph.thread_graphs, so chunks of one shape on one card
+    share a graph) and the copies between devices stay eager.
     Returns (gathered, n_valid): gathered[d][s] is [S, 3*blocks_c, 2] on
     mesh[d, s], the samples of every chunk of capture d; n_valid[d][s] is
     the grid-wide count (int64, 0-d) on mesh[d, s].
@@ -94,7 +98,7 @@ def multichip_decode_step(mesh, hyst_limit=1, shift_limit=1):
     def step(px, cd, ref, blk, wht):
         samples = [[decoder.decode_stream(
             px[d][s], cd[d][s], ref[d][s], blk[d][s], wht[d][s],
-            hyst_limit=hyst_limit, shift_limit=shift_limit)
+            hyst_limit=hyst_limit, shift_limit=shift_limit, graphs=graphs)
             for s in range(S)] for d in range(D)]
         total = sum(r.line_valid.sum(dtype=torch.int64).cpu()
                     for row in samples for r in row)

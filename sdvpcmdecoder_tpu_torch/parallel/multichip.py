@@ -14,6 +14,9 @@ collection.
 The decode math is deterministic, so sharded output is byte-identical
 to a single-device run.  Shards are threads; several may share one card
 (devices=[cuda:0, cuda:0]), each launching on its own device context.
+Each shard's thread has its own graph holders (round_graph.thread_graphs,
+the chip-resident drivers' round graphs), so two shards on one card never
+replay or capture into each other's graphs; `graphs` in **kw reaches them.
 """
 from __future__ import annotations
 

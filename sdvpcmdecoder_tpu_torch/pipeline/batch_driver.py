@@ -23,7 +23,12 @@ through mode_m2), PCM-1, PCM-16x0 (SI, EI as "pcm1630") and fmt="auto".
 The driver's `device` and `use_kernel` reach the V2D driver and the
 stitcher's device backend; PCM-1/16x0 jobs run the host round loop and
 their PCMFrameDriver the trial grid on `device` ("auto" = "tpu" on a
-CUDA device, as for STC-007).
+CUDA device, as for STC-007).  With `graphs` (the default) every device
+call of the drivers (the batch's trial grid, the marker fallback's
+re-decode, the level sweeps, the PCM grid) replays as a CUDA graph from
+the thread's ops/round_graph.RoundGraphs on `device`, `stream_graphs`
+(round_graph.thread_graphs), which all the jobs' drivers share with any
+other decoder of the thread; graphs=False runs them eagerly.
 """
 from __future__ import annotations
 
@@ -106,7 +111,8 @@ class BatchDecoder:
                  normal_sweep_prescan=False, seam_backend="auto",
                  refine=True, mode_m2=False, preset_video=None,
                  preset_order=None, preset_resolution=None,
-                 preset_sample_rate=None, device="cuda", use_kernel=None):
+                 preset_sample_rate=None, device="cuda", use_kernel=None,
+                 graphs=True):
         self.jobs = [CaptureJob(path=p, out_path=o) for p, o in jobs]
         self.frames_per_round = frames_per_round
         self.checkpoint = checkpoint
@@ -139,6 +145,10 @@ class BatchDecoder:
             backend = "native"  # round loop; the driver splits internally
         self.backend = backend
         self.stage_t = defaultdict(float)
+        # The drivers' graph holder, the thread's: a capture made for one
+        # job's shape serves every job, and later decoders.
+        from ..ops.round_graph import thread_graphs
+        self.stream_graphs = thread_graphs(device) if graphs else None
         for j in self.jobs:
             j.reader = ingest.open_capture(j.path)
             j.stats.frames_dropped = getattr(j.reader, "dropped_frames", 0)
@@ -162,7 +172,7 @@ class BatchDecoder:
                     ref_sweep_fallback=ref_sweep_fallback,
                     normal_sweep_prescan=normal_sweep_prescan,
                     per_line_agc=per_line_agc, m2=mode_m2, device=device,
-                    use_kernel=use_kernel)
+                    use_kernel=use_kernel, graphs=graphs)
                 j.stitcher = st.STC007Stitcher(
                     preset_video=preset_video,
                     mode_m2=mode_m2, auto_m2=not mode_m2,
@@ -177,7 +187,8 @@ class BatchDecoder:
                 j.driver = v2d_other.PCMFrameDriver(
                     "pcm1", shift_limit=shift_limit,
                     hyst_limit=hyst_limit, backend=line_backend,
-                    refine=refine, device=device)
+                    refine=refine, device=device,
+                    graphs=graphs)
                 j.stitcher = sp1.PCM1Stitcher()
             elif fmt in ("pcm16x0", "pcm1630"):
                 from . import stitcher_pcm16x0 as sp16
@@ -185,7 +196,8 @@ class BatchDecoder:
                 j.driver = v2d_other.PCMFrameDriver(
                     "pcm16x0", shift_limit=shift_limit,
                     hyst_limit=hyst_limit, backend=line_backend,
-                    refine=refine, device=device)
+                    refine=refine, device=device,
+                    graphs=graphs)
                 j.stitcher = sp16.PCM16X0Stitcher(
                     fmt=sp16.FORMAT_EI if fmt == "pcm1630"
                     else sp16.FORMAT_SI,

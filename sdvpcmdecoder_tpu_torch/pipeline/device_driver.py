@@ -340,7 +340,12 @@ class DeviceBatchDecoder(StagedDeviceDecoder):
     K1 (ops/fused_binarize) instead of the plain torch grid. With
     `graphs` (the default) each round replays as a CUDA graph
     (`self.graphs`, an ops.round_graph.RoundGraphs; its CPU stand-in on
-    the CPU); graphs=False runs the round's ops eagerly.
+    the CPU), and so do the V2D drivers' finalize sweeps and marker
+    re-decodes (`self.stream_graphs`, the thread's holder that the
+    streaming drivers share); graphs=False runs both eagerly. The two
+    holders keep two memory pools: a round's graph and a finalize graph
+    never share memory, so neither replay can touch a buffer of the
+    other's that is still to be read.
     """
 
     def __init__(self, jobs, lines_per_field=294, hyst_limit=2,
@@ -359,7 +364,7 @@ class DeviceBatchDecoder(StagedDeviceDecoder):
                          frames_per_round=frames_per_round,
                          seam_backend="tpu-spec" if _sn.available()
                          else "tpu", device=self.device,
-                         use_kernel=use_kernel, **kw)
+                         use_kernel=use_kernel, graphs=graphs, **kw)
         self.hyst_limit = hyst_limit
         self.shift_limit = shift_limit
         self._round_hbm_frames(frames_per_round, hbm_frames)

@@ -65,7 +65,9 @@ class DevicePCMBatchDecoder(StagedDeviceDecoder):
     beyond the stitcher's own host-side histories). With `graphs` (the
     default) each round replays as a CUDA graph (`self.graphs`, an
     ops.round_graph.RoundGraphs; its CPU stand-in on the CPU);
-    graphs=False runs the round's ops eagerly.
+    graphs=False runs the round's ops eagerly. The frame drivers'
+    refinement runs on the host here, so BatchDecoder's `stream_graphs`
+    (a pool of its own) stays unused.
     """
 
     def __init__(self, jobs, fmt, hyst_limit=0, shift_limit=2,
@@ -77,7 +79,7 @@ class DevicePCMBatchDecoder(StagedDeviceDecoder):
         super().__init__(jobs, fmt=fmt, hyst_limit=hyst_limit,
                          shift_limit=shift_limit,
                          frames_per_round=frames_per_round,
-                         device=self.device, **kw)
+                         device=self.device, graphs=graphs, **kw)
         self.dec_fmt = "pcm1" if fmt == "pcm1" else "pcm16x0"
         self.hyst_limit = hyst_limit
         self.shift_limit = shift_limit

@@ -22,9 +22,24 @@ on a GPU) the trial grid, the marker fallback's re-decode and the level
 sweeps run through the CUDA kernel's wrappers (ops/fused_binarize), else
 through the plain torch versions (ops/binarize).  The host backend
 (decode_frames_host) decodes in place with the native core.
+
+The JAX package compiles each of those device calls once per shape
+(`jax.jit` / a Pallas call; the sweep's `lax.scan` inside one program).
+With `graphs` (the default) the port replays each as a CUDA graph from
+the thread's ops/round_graph.RoundGraphs (thread_graphs), which every
+driver of the thread shares as JAX's jit cache is shared. Keys are what
+JAX keys its compiles by: the call's name, the grid's static arguments
+and the input shapes (the CLI's batch, padded at the tail; the
+fallback's FALLBACK_BUCKET x 1 line; a whole batch for the INSANE merge;
+the prescan sample for the NORMAL prescan sweep). A key's first call
+runs eagerly, its second captures, later ones replay: the trial grid
+and the casts of a dispatch are one graph launch, a 64-level sweep is
+one graph launch that counts 64 K1 launches. graphs=False runs the same
+bodies eagerly.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 from typing import NamedTuple
 
@@ -34,7 +49,8 @@ import torch
 from ..formats import stc007
 from ..ops import agc, binarize as bz, markers
 from ..ops import fused_binarize as fb
-from ..utils.host import HostCopy, host_call
+from ..ops.round_graph import thread_graphs
+from ..utils.host import HostCopy, host_call, upload
 
 COORD_CHECK_LINES = 4     # videotodigital.h:98-105
 COORD_CHECK_PARTS = COORD_CHECK_LINES + 1
@@ -78,6 +94,23 @@ else:  # numpy < 2.0
         return np.unpackbits(
             np.ascontiguousarray(x).view(np.uint8), axis=-1) \
             .reshape(x.shape + (8 * x.dtype.itemsize,)).sum(-1)
+
+
+def _i32(a) -> torch.Tensor:
+    """A host array as an int32 CPU tensor (a graph's input)."""
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
+
+
+def _u8(pixels) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(pixels))
+
+
+@functools.lru_cache(maxsize=None)
+def _sweep_levels(device, step):
+    """The sweep's level grid 254, 254 - step, ... > 1 on `device`,
+    uploaded once: a graph reads it wherever its capture found it."""
+    return torch.as_tensor(np.arange(254, 1, -step, dtype=np.int32),
+                           device=device)
 
 
 def prescan_rows(L, n_chk=None):
@@ -177,7 +210,7 @@ class V2DDriver:
                  forced_coords=None, ref_sweep_fallback=False,
                  per_line_agc=False, dup_detect=True, device="cuda",
                  use_kernel=None, m2=False, normal_sweep_prescan=False,
-                 coord_skip=True):
+                 coord_skip=True, graphs=True):
         self.hyst_limit = hyst_limit
         self.shift_limit = shift_limit
         self.preset = preset or agc.BinPreset()
@@ -197,7 +230,9 @@ class V2DDriver:
                            else use_kernel)
         self.fallback_batches = 0   # re-decode calls of _marker_fallback
         self.sweep_calls = 0        # level sweeps run on `device`
-        self._levels_dev = None     # the sweep's level grid on `device`
+        # The device calls as CUDA graphs from the thread's holder on
+        # `device` (the CPU's stand-in on the CPU), or eagerly.
+        self.graphs = thread_graphs(self.device) if graphs else None
         self.ref_sweep = ref_sweep
         # NORMAL-mode analog of the reference's always-on STC-007 sweep:
         # only lines still invalid after the marker fallback re-run the
@@ -472,15 +507,42 @@ class V2DDriver:
         ref2 = np.where(good, ref, refs[:, None])
         return ref2, blk2, wht2
 
-    def _grid(self):
-        """The frame trial grid: the CUDA kernel's wrapper or the plain
-        torch version."""
-        return fb.stc007_fused_decode_frames if self.use_kernel \
+    def _grid(self, px, coords, refs, blacks, whites):
+        """The frame trial grid on device tensors: the CUDA kernel's
+        wrapper or the plain torch version. Returns a LineBatch."""
+        grid = fb.stc007_fused_decode_frames if self.use_kernel \
             else bz.stc007_frame_decode
+        return grid(px, coords, refs, blacks, whites,
+                    hyst_limit=self.hyst_limit, shift_limit=self.shift_limit)
 
-    def _dev(self, a, dtype=torch.int32):
-        return torch.as_tensor(np.asarray(a), dtype=dtype,
-                               device=self.device)
+    def _run(self, name, body, inputs, clone=()):
+        """body(*inputs) on the driver's device, inputs host tensors:
+        through self.graphs under the key (name, the static arguments
+        the bodies read), else eagerly on the inputs uploaded. Outputs
+        outside `clone` are a graph's own buffers: the caller copies
+        them (HostCopy) before the driver's next call."""
+        if self.graphs is None:
+            return tuple(body(*(upload(t, self.device) for t in inputs)))
+        key = (name, self.use_kernel, self.hyst_limit, self.shift_limit,
+               self.sweep_step)
+        return self.graphs.run(key, body, inputs, clone=clone)
+
+    def _grid_body(self, *args):
+        """The trial grid: words, crc_read, valid (contiguous: the plain
+        grid's are slices, copied out as they are)."""
+        b = self._grid(*args)
+        return b.words.contiguous(), b.crc_read.contiguous(), b.valid
+
+    def _dispatch_body(self, *args):
+        """The trial grid and the casts of a dispatch. Words are 14-bit,
+        CRC 16-bit: cast AND flatten the minor axis on DEVICE before the
+        copy out ([F, L*8] int16; the CRC's 16 bits travel as int16 and
+        are read as uint16 on the host)."""
+        b = self._grid(*args)
+        F = b.words.shape[0]
+        return (b.words.to(torch.int16).reshape(F, -1),
+                b.crc_read.to(torch.int16), b.valid, b.crc_calc, b.hyst,
+                b.shift)
 
     def dispatch_frames_async(self, pixels, prep):
         """Device phase, non-blocking: enqueue one batched trial-grid
@@ -488,31 +550,24 @@ class V2DDriver:
         (the caller overlaps host work with device execution — the
         VIN/V2D double-buffer analog, config.h:76-77).  words, crc_read
         and valid of the returned batch are copies in flight
-        (utils.host.HostCopy), the other fields stay on the device.
+        (utils.host.HostCopy), enqueued before any later call of the
+        driver can replay the graph again; crc_calc, hyst and shift stay
+        on the device (copies of the graph's buffers).
 
         Safe to call with a CONCATENATION of several drivers' prepared
         batches — everything here is per-frame.
         """
-        coords, blacks, whites = prep["coords"], prep["blacks"], \
-            prep["whites"]
         # Per-frame [F] and per-line [F, L] levels (per_line_agc) alike go
         # through K1 when use_kernel: the kernel reads them by strides.
-        px = torch.from_numpy(np.ascontiguousarray(pixels)).to(
-            self.device, non_blocking=True)
-        batch = self._grid()(
-            px, self._dev(coords),
-            self._dev(np.maximum(prep["refs"], 1)),
-            self._dev(np.clip(blacks, 0, 254)),
-            self._dev(np.clip(whites, 1, 255)),
-            hyst_limit=self.hyst_limit, shift_limit=self.shift_limit)
-        # Words are 14-bit, CRC 16-bit: cast AND flatten the minor axis
-        # on DEVICE before the copy out ([F, L*8] int16; the CRC's 16
-        # bits travel as int16 and are read as uint16 on the host).
-        F = batch.words.shape[0]
-        return batch._replace(
-            words=HostCopy(batch.words.to(torch.int16).reshape(F, -1)),
-            crc_read=HostCopy(batch.crc_read.to(torch.int16)),
-            valid=HostCopy(batch.valid))
+        words, crc_read, valid, crc_calc, hyst, shift = self._run(
+            "dispatch", self._dispatch_body,
+            (_u8(pixels), _i32(prep["coords"]),
+             _i32(np.maximum(prep["refs"], 1)),
+             _i32(np.clip(prep["blacks"], 0, 254)),
+             _i32(np.clip(prep["whites"], 1, 255))), clone=(3, 4, 5))
+        return bz.LineBatch(words=HostCopy(words),
+                            crc_read=HostCopy(crc_read), crc_calc=crc_calc,
+                            valid=HostCopy(valid), hyst=hyst, shift=shift)
 
     def materialize_frames(self, pixels, prep, batch):
         """Blocking device->host transfer of a dispatch + INSANE sweep."""
@@ -651,25 +706,28 @@ class V2DDriver:
         """One level sweep of host arrays pixels [F, L, W], coords
         [F, 2], blacks/whites [F] on the driver's device: through K1
         (one launch per level) when use_kernel, else the plain torch
-        sweep.  Returns a _Sweep over lines flattened to N = F * L."""
-        if self._levels_dev is None:
-            self._levels_dev = self._dev(
-                np.arange(254, 1, -self.sweep_step, dtype=np.int32))
+        sweep; under `graphs` one graph launch.  Returns a _Sweep over
+        lines flattened to N = F * L, its words a copy that a later
+        sweep does not touch."""
         sweep = fb.stc007_ref_sweep_decode if self.use_kernel \
             else bz.stc007_ref_sweep_decode
-        px = torch.from_numpy(np.ascontiguousarray(pixels)).to(
-            self.device, non_blocking=True)
-        sw = sweep(px, self._dev(coords), self._dev(blacks),
-                   self._dev(whites), self._levels_dev,
-                   hyst_limit=self.hyst_limit,
-                   shift_limit=self.shift_limit)
+        levels = _sweep_levels(self.device, self.sweep_step)
+        R = levels.shape[0]
+        N = pixels.shape[0] * pixels.shape[1]
+
+        def body(px, cd, bk, wt):
+            sw = sweep(px, cd, bk, wt, levels, hyst_limit=self.hyst_limit,
+                       shift_limit=self.shift_limit)
+            return tuple(sw[k].reshape(R, N) for k in
+                         ("valid", "crc", "hyst", "shift")) \
+                + (sw["words"].reshape(R, N, -1),)
+
+        *facts, words = self._run(
+            "sweep", body, (_u8(pixels), _i32(coords), _i32(blacks),
+                            _i32(whites)), clone=(4,))
         self.sweep_calls += 1
-        R = self._levels_dev.shape[0]
-        N = px.shape[0] * px.shape[1]
-        copies = [HostCopy(sw[k].reshape(R, N))
-                  for k in ("valid", "crc", "hyst", "shift")]
-        return _Sweep(*(c.numpy() for c in copies),
-                      sw["words"].reshape(R, N, -1))
+        copies = [HostCopy(t) for t in facts]
+        return _Sweep(*(c.numpy() for c in copies), words)
 
     def _sweep_failed_lines(self, pixels, coords, black, white, words,
                             crc_read, valid, forced, perm=None):
@@ -802,8 +860,6 @@ class V2DDriver:
                 valid[rows] = True
             return words, crc_read, valid
         B = self.FALLBACK_BUCKET
-        decode = self._grid()
-        dev = self.device
         for base in range(0, len(retry), B):
             grp = retry[base:base + B]
             n = len(grp)
@@ -813,20 +869,16 @@ class V2DDriver:
             cds[:, 1] = pixels.shape[1] - 1
             cds[:n, 0] = ds[grp]
             cds[:n, 1] = de[grp]
-            w2 = decode(
-                torch.from_numpy(px).to(dev),
-                torch.as_tensor(cds, dtype=torch.int32, device=dev),
-                torch.full((B,), ref, dtype=torch.int32, device=dev),
-                torch.full((B,), max(black, 0), dtype=torch.int32,
-                           device=dev),
-                torch.full((B,), min(white, 255), dtype=torch.int32,
-                           device=dev),
-                hyst_limit=self.hyst_limit, shift_limit=self.shift_limit)
+            w2, c2, v2 = (HostCopy(t) for t in self._run(
+                "grid", self._grid_body,
+                (torch.from_numpy(px), _i32(cds), _i32(np.full(B, ref)),
+                 _i32(np.full(B, max(black, 0))),
+                 _i32(np.full(B, min(white, 255))))))
             self.fallback_batches += 1
-            ok2 = w2.valid[:n, 0].cpu().numpy()
+            ok2 = v2.numpy()[:n, 0]
             rows = bad[grp[ok2]]
-            words[rows] = w2.words[:n, 0].cpu().numpy()[ok2]
-            crc_read[rows] = w2.crc_read[:n, 0].cpu().numpy()[ok2]
+            words[rows] = w2.numpy()[:n, 0][ok2]
+            crc_read[rows] = c2.numpy()[:n, 0][ok2]
             valid[rows] = True
         return words, crc_read, valid
 
@@ -850,15 +902,10 @@ class V2DDriver:
         if self.forced_coords is not None:
             coords = tuple(self.forced_coords)
         L, W = pixels.shape
-        batch = self._grid()(
-            torch.from_numpy(np.ascontiguousarray(pixels[None])).to(
-                self.device),
-            self._dev([[coords[0], coords[1]]]), self._dev([ref]),
-            self._dev([max(black, 0)]), self._dev([min(white, 255)]),
-            hyst_limit=self.hyst_limit, shift_limit=self.shift_limit)
-        words = batch.words[0].cpu().numpy()
-        crc_read = batch.crc_read[0].cpu().numpy()
-        valid = batch.valid[0].cpu().numpy()
+        words, crc_read, valid = (HostCopy(t).numpy()[0] for t in self._run(
+            "grid", self._grid_body,
+            (_u8(pixels[None]), _i32([[coords[0], coords[1]]]), _i32([ref]),
+             _i32([max(black, 0)]), _i32([min(white, 255)]))))
         forced = np.zeros(L, bool)
         if self.ref_sweep:
             w4, c4, v4, f4 = self._ref_sweep_merge(

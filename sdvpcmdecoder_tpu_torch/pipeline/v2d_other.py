@@ -20,7 +20,13 @@ Port of sdvpcmdecoder_tpu/pipeline/v2d_other.py.  The difference:
 `device` (default "cuda") says where the "tpu" backend's grid runs, and
 "auto" resolves as batch_driver.resolve_auto_backend does — the grid on
 the card for a CUDA device, the JAX package's rule (native when the C++
-core is built) only for device="cpu".
+core is built) only for device="cpu".  The JAX package's grid is one
+compiled program a shape (`jax.jit` pcm1_frame_decode /
+pcm16x0_frame_decode); with `graphs` (the default) the port replays it
+as a CUDA graph from the thread's ops/round_graph.RoundGraphs
+(thread_graphs; the CPU's stand-in on the CPU), keyed by the format,
+the trial limits and the input shapes; graphs=False runs its ops
+eagerly.
 """
 from __future__ import annotations
 
@@ -30,6 +36,8 @@ import numpy as np
 import torch
 
 from ..ops import agc, line_decode_np as ld
+from ..ops.round_graph import thread_graphs
+from ..utils.host import HostCopy, upload
 from .v2d import _imed
 
 COORD_CHECK_LINES = 4      # videotodigital.h:98-105
@@ -62,7 +70,7 @@ class PCMFrameDriver:
 
     def __init__(self, fmt: str, shift_limit=2, hyst_limit=0, refine=True,
                  preset: agc.BinPreset | None = None, backend="auto",
-                 device="cuda"):
+                 device="cuda", graphs=True):
         assert fmt in ("pcm1", "pcm16x0")
         self.fmt = fmt
         self.shift_limit = shift_limit
@@ -74,6 +82,9 @@ class PCMFrameDriver:
             backend = resolve_auto_backend(device)
         self.backend = backend
         self.device = torch.device(device)
+        # The "tpu" grid as a CUDA graph from the thread's holder on
+        # `device` (the CPU's stand-in on the CPU), or eagerly.
+        self.graphs = thread_graphs(self.device) if graphs else None
         self.coord_history: list[tuple[int, int]] = []
         self._frames_since_search = 0
         self._last_good = False
@@ -209,18 +220,27 @@ class PCMFrameDriver:
                 pixels, coords, refs, blacks, whites, self.shift_limit,
                 hyst_limit=self.hyst_limit)
         from ..ops import binarize as bz
-        dev = self.device
-        px = torch.from_numpy(np.require(pixels, requirements=("C", "W"))) \
-            .to(dev)
-        args = (px,) + tuple(torch.from_numpy(a).to(dev)
-                             for a in (coords, refs, blacks, whites))
-        if self.fmt == "pcm1":
-            out = bz.pcm1_frame_decode(*args, shift_limit=self.shift_limit,
-                                       hyst_limit=self.hyst_limit)
-            return tuple(t.cpu().numpy() for t in out) + (None,)
-        out = bz.pcm16x0_frame_decode(*args, shift_limit=self.shift_limit,
-                                      hyst_limit=self.hyst_limit)
-        return tuple(t.cpu().numpy() for t in out)
+        decode = bz.pcm1_frame_decode if self.fmt == "pcm1" \
+            else bz.pcm16x0_frame_decode
+
+        def body(*args):   # contiguous: copied out as they are
+            return tuple(t.contiguous() for t in decode(
+                *args, shift_limit=self.shift_limit,
+                hyst_limit=self.hyst_limit))
+
+        inputs = (torch.from_numpy(np.require(pixels,
+                                              requirements=("C", "W"))),) \
+            + tuple(torch.from_numpy(a)
+                    for a in (coords, refs, blacks, whites))
+        if self.graphs is None:
+            out = body(*(upload(t, self.device) for t in inputs))
+        else:
+            out = self.graphs.run(
+                ("frame_decode", self.fmt, self.shift_limit,
+                 self.hyst_limit), body, inputs)
+        copies = [HostCopy(t) for t in out]   # before the next replay
+        host = tuple(c.numpy() for c in copies)
+        return host + (None,) if self.fmt == "pcm1" else host
 
     def decode_prepared(self, pixels, prep, perm=None):
         """-> list of OtherFrameResult (None for unusable frames).

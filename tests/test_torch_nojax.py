@@ -54,6 +54,42 @@ with tempfile.TemporaryDirectory() as tmp:
     back, _ = wav.read_wav(path)
 assert np.array_equal(back, res.samples.numpy())
 
+# The stream chain's graphs (the CPU's stand-in): decode_frames and
+# decode_stream replay from this thread's holder after a key's eager use
+# and its capture, with the eager results.
+from sdvpcmdecoder_tpu_torch.ops.round_graph import thread_graphs
+sg = thread_graphs("cpu")   # the thread's holder: decode_frames' so far
+frames3 = (torch.from_numpy(pixels.reshape(F, LF, W)),
+           torch.from_numpy(coords[::LF]), *lv)
+for _ in range(2):
+    again = decoder.decode_frames(*frames3)
+    assert all(torch.equal(a, b) for a, b in zip(again, res))
+lines = [torch.from_numpy(pixels), torch.from_numpy(coords.astype(np.int32))]
+lines += [torch.full((F * LF,), v, dtype=torch.int32) for v in (110, 20, 200)]
+first = decoder.decode_stream(*lines, hyst_limit=1, shift_limit=1,
+                              graphs=False)
+for _ in range(3):
+    again = decoder.decode_stream(*lines, hyst_limit=1, shift_limit=1)
+    assert all(torch.equal(a, b) for a, b in zip(again, first))
+assert (sg.eager_rounds, sg.captures, sg.replays) == (2, 2, 4)
+
+# The streaming backend's graphs: V2DDriver's dispatch and level sweep.
+from sdvpcmdecoder_tpu_torch.pipeline import v2d as tv2d
+before = (sg.eager_rounds, sg.captures, sg.replays)
+drvs = [tv2d.V2DDriver(device="cpu", hyst_limit=2, shift_limit=1,
+                       graphs=g) for g in (True, False)]
+px_np = pixels.reshape(F, LF, W)
+sweep_in = (px_np[:, :24], coords[::LF], np.full(F, 20), np.full(F, 200))
+for _ in range(3):
+    a, b = (d.dispatch_frames(px_np, d.prepare_frames(px_np)) for d in drvs)
+    assert all(np.array_equal(x, y) for x, y in zip(a, b))
+    a, b = (d._sweep_decode(*sweep_in) for d in drvs)
+    assert all(np.array_equal(x, y) for x, y in zip(a[:4], b[:4]))
+    assert torch.equal(a.words, b.words)
+assert drvs[0].graphs is sg and tuple(
+    x - y for x, y in zip((sg.eager_rounds, sg.captures, sg.replays),
+                          before)) == (2, 2, 4)
+
 # The round (device_stitch + the round geometry) and K2's wrapper.
 from sdvpcmdecoder_tpu_torch.ops import device_stitch as ds
 from sdvpcmdecoder_tpu_torch.ops import fused_binarize as fb
@@ -154,6 +190,13 @@ with tempfile.TemporaryDirectory() as tmp:
     device_pcm.DevicePCMBatchDecoder([(p16, f"{tmp}/d16.wav")], **kw).run()
     b16 = open(f"{tmp}/b16.wav", "rb").read()
     assert b16 == open(f"{tmp}/d16.wav", "rb").read() and len(b16) > 1000
+    # The PCM grid on the device, a graph replayed from its second batch.
+    replays = sg.replays
+    dec = bd.BatchDecoder([(p16, f"{tmp}/g16.wav")], backend="tpu",
+                          **dict(kw, frames_per_round=1))
+    dec.run()
+    assert open(f"{tmp}/g16.wav", "rb").read() == b16
+    assert dec.stream_graphs is sg and sg.replays == replays + 1
     for fmt, cap, backend in (("pcm1", p1, "tpu"), ("auto", p1, "native"),
                               ("pcm16x0", p16, "device")):
         assert cli_main([cap, "-o", f"{tmp}/c.wav", "--format", fmt,
