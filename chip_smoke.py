@@ -35,8 +35,12 @@ backend and the stream chain with their device calls replayed as CUDA
 graphs against the same calls eager (BatchDecoder.run_tpu on the timed
 frames, the PCM-1/16x0 round loop, the 64-level sweep at NORMAL and
 INSANE, the 128-frame decode_frames and the mesh step; 5 alternating
-pairs a cell, results byte-equal, one graph launch a replay); then the ingest
-surface and multi-GPU (C1-C9): the golden PAL capture in AVI and
+pairs a cell, results byte-equal, one graph launch a replay); G4, the
+stitcher's device seam route (BatchDecoder(seam_backend="tpu").run_tpu:
+every block eval and padding search of the stitch a J9 or J10 call on the
+card, replayed as CUDA graphs and eager) on the timed frames, the noisy
+capture and an M2 capture, its WAVs equal to the default route's; then
+the ingest surface and multi-GPU (C1-C9): the golden PAL capture in AVI and
 Matroska files of each lossless codec through the CLI and the driver,
 each codec's read time, dropped slots, 1 and 2 concurrent
 ShardedBatchDecoder shards on one card, the mesh step, a 720-px capture,
@@ -958,6 +962,287 @@ def stream_graph_phase(dev, card, tmp, big, px, cd, levels):
         "G3-mesh", lambda g: (steps[g](*sharded), None), same_step, card,
         holder=holder)
     return out, fb.stc007_fused_decode_frames.launches - n0
+
+
+# ---- G4: the stitcher's device seam route as CUDA graphs -------------------
+SEAM_TIMED_RUNS = 5   # G4: graph-route runs a cell after its warm-up run
+SEAM_EAGER_RUNS = {"full_width": 1, "noisy": SEAM_TIMED_RUNS, "m2": 1}
+
+
+class SeamCalls:
+    """The stitcher's device calls while it is entered: J9
+    (ops/device_stitch.eval_rows_arrays) and J10 (seam_sweep), counted by
+    a wrapper around each, with the eager calls, captures and replays each
+    call made in the holder of the thread that made it
+    (round_graph.thread_graphs; a thread's holder moves only in its own
+    calls), and the calls of each (thread, key): the key as the holder
+    forms it, the static arguments and the bucketed shapes. `last` keeps
+    the arguments of each program's last call."""
+
+    def __init__(self):
+        import collections
+        import threading
+        self.calls = collections.Counter()
+        self.moves = collections.Counter()
+        self.by_key = collections.Counter()
+        self.captured = collections.Counter()
+        self.last = {}
+        self._lock = threading.Lock()
+
+    def __enter__(self):
+        from sdvpcmdecoder_tpu_torch.ops import device_stitch as ds
+        self._orig = {n: getattr(ds, n) for n in ("eval_rows_arrays",
+                                                  "seam_sweep")}
+        for name, fn in self._orig.items():
+            setattr(ds, name, self._wrap(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        from sdvpcmdecoder_tpu_torch.ops import device_stitch as ds
+        for name, fn in self._orig.items():
+            setattr(ds, name, fn)
+
+    def _wrap(self, name, fn):
+        import threading
+
+        from sdvpcmdecoder_tpu_torch.ops import device_stitch as ds
+        from sdvpcmdecoder_tpu_torch.ops.round_graph import thread_graphs
+        prog = "J9" if name == "eval_rows_arrays" else "J10"
+
+        def counted(*a, **k):
+            g = thread_graphs(k["device"]) if k.get("graphs", True) \
+                else None
+            before = (g.eager_rounds, g.captures, g.replays) if g else None
+            out = fn(*a, **k)
+            key = ((prog, ds._bucket(len(a[0])), ds._bucket(int(a[4])),
+                    *a[6:10]) if prog == "J9" else (prog, *a[6:9]))
+            with self._lock:
+                self.calls[prog] += 1
+                self.last[prog] = (a, dict(k))
+                self.by_key[threading.get_ident(), key] += 1
+                if g is not None:
+                    delta = [x - y for x, y in zip(
+                        (g.eager_rounds, g.captures, g.replays), before)]
+                    for what, d in zip(("eager", "captures", "replays"),
+                                       delta):
+                        self.moves[what] += d
+                    self.captured[threading.get_ident(), key] += delta[1]
+            return out
+        return counted
+
+    def summary(self):
+        threads = {t for t, _ in self.by_key}
+        return dict(J9=self.calls["J9"], J10=self.calls["J10"],
+                    eager=self.moves["eager"],
+                    captures=self.moves["captures"],
+                    replays=self.moves["replays"], threads=len(threads),
+                    thread_keys=len(self.by_key),
+                    most_captures_a_thread_key=max(self.captured.values(),
+                                                   default=0))
+
+
+def seam_call_stats(prog, a, k):
+    """One J9 or J10 call (`prog`, with the arguments a, k of a call the
+    stitcher made) on this thread: its replay and its eager call each
+    equal, one replay traced (one cudaGraphLaunch) and one eager call
+    traced (kernel rows, host runtime calls), and the host ms of each
+    (median of 20, alternating: the numpy results wait for the card)."""
+    from sdvpcmdecoder_tpu_torch.ops import device_stitch as ds
+    from sdvpcmdecoder_tpu_torch.ops.round_graph import thread_graphs
+    fn = ds.eval_rows_arrays if prog == "J9" else ds.seam_sweep
+    k = dict(k, device=DEVICE)
+    calls = {True: lambda: fn(*a, **dict(k, graphs=True)),
+             False: lambda: fn(*a, **dict(k, graphs=False))}
+    ref = calls[False]()
+    g = thread_graphs(DEVICE)
+    for _ in range(2):   # the key's eager use and capture, if still due
+        got = calls[True]()
+    same = lambda x, y: all(np.array_equal(p, q) and p.dtype == q.dtype
+                            for p, q in zip(x, y))
+    check(same(got, ref), f"G4 {prog}: the replay differs from the eager "
+          "call")
+    ms = {True: [], False: []}
+    for i in range(20):
+        for gr in ((True, False) if i % 2 == 0 else (False, True)):
+            t0 = time.perf_counter()
+            calls[gr]()
+            ms[gr].append((time.perf_counter() - t0) * 1e3)
+    out = {}
+    for gr, route in ((True, "graph"), (False, "eager")):
+        replays = g.replays
+        tr = traced(calls[gr])
+        check(same(tr["result"], ref), f"G4 {prog}: traced {route} call "
+              "differs")
+        if gr:
+            check(tr["graph_launches"] == 1 and g.replays == replays + 1,
+                  f"G4 {prog}: {tr['graph_launches']} graph launches in "
+                  f"one replayed call")
+        out[route] = dict(host_ms=statistics.median(ms[gr]),
+                          kernel_rows=tr["kernel_rows"],
+                          copy_rows=tr["copy_rows"],
+                          host_calls=dict(sorted(tr["host_calls"].items())),
+                          busy_ms=tr["busy_ms"])
+    return out
+
+
+def seam_graph_phase(card, tmp, big, noisy_cap):
+    """Phase G4: BatchDecoder(backend="tpu", seam_backend="tpu").run_tpu(),
+    K1 binarizing each round and the stitcher's device seam route doing
+    every resolution count, seam, conv and final deinterleave eval (J9)
+    and padding search (J10) on the card, its calls replayed as CUDA
+    graphs (graphs=True) and eager (graphs=False). Cells: the timed 2 x
+    128 clean PAL frames (32 a fused round), the noisy 32-frame capture
+    (sigma 26) and the M2 preset on Q3's capture. Each cell's WAVs equal
+    the default route's (seam_backend="auto", the native core) of the same
+    run under both routes, and the M2 WAV its pinned hash. The graph route
+    runs once to warm up, then SEAM_TIMED_RUNS times; the eager route
+    SEAM_EAGER_RUNS[cell] times; one traced run of each route on the M2
+    capture gives the device's busy time (a trace of the noisy run holds
+    ~120,000 kernel rows and takes most of a minute to read). Then one J9
+    and one J10 call of the noisy run, replayed and eager, traced. Returns
+    the measurements and the phase's K1 launches."""
+    import hashlib
+    import os
+
+    from sdvpcmdecoder_tpu_torch.ops import fused_binarize as fb
+    from sdvpcmdecoder_tpu_torch.pipeline import batch_driver
+    q3 = write_capture(os.path.join(tmp, "g4_q3.y4m"), **Q3)
+    tkw = dict(lines_per_field=294, hyst_limit=NORMAL[0],
+               shift_limit=NORMAL[1], frames_per_round=ROUND_FRAMES,
+               backend="tpu", device=DEVICE)
+    cells = {   # name: (captures, BatchDecoder arguments, frames)
+        "full_width": (big, tkw, DRIVER_FRAMES * len(big)),
+        "noisy": ([noisy_cap], tkw, NOISY_FRAMES),
+        "m2": ([q3], dict(Q3_MULTI_KW, mode_m2=True, backend="tpu",
+                          device=DEVICE), Q3["n_frames"])}
+    fb.stc007_fused_decode_frames.launches = 0
+
+    def run(cell, tag, **kw):
+        """One run of the cell: (WAVs, wall s, stage_t, J9/J10 calls and
+        holder moves, K1 launches)."""
+        jobs, ckw, _ = cells[cell]
+        n0 = fb.stc007_fused_decode_frames.launches
+        with SeamCalls() as sc:
+            wavs, dec, _, wall = timed_driver_run(
+                batch_driver.BatchDecoder, jobs, tmp, f"g4{cell}{tag}",
+                **ckw, **kw)
+        if kw.get("seam_backend") == "tpu":
+            check(all(j.stitcher.seam_backend == "tpu"
+                      and j.stitcher.graphs is kw.get("graphs", True)
+                      for j in dec.jobs), f"G4 {cell}: stitcher settings")
+        return (wavs, wall, dict(dec.stage_t), sc,
+                fb.stc007_fused_decode_frames.launches - n0)
+
+    out = dict(card=card)
+    defaults = {}
+    for cell, (_, _, frames) in cells.items():
+        default, dwall, _, _, dk1 = run(cell, "auto", seam_backend="auto")
+        defaults[cell] = default
+        if cell == "m2":
+            check(hashlib.sha256(default[0]).hexdigest()
+                  == GOLDEN_Q3_DRIVER_SHA256["m2"], "G4 m2: the default "
+                  "route's WAV is not the JAX package's")
+        res = dict(default_wall_s=dwall, default_k1=dk1)
+        for graphs, route in ((True, "graph"), (False, "eager")):
+            n_runs = SEAM_TIMED_RUNS + 1 if graphs \
+                else SEAM_EAGER_RUNS[cell]
+            walls, stitch, runs, k1 = [], [], [], set()
+            for i in range(n_runs):
+                wavs, wall, stage_t, sc, launches = run(
+                    cell, f"{route}{i}", seam_backend="tpu", graphs=graphs)
+                check(wavs == default, f"G4 {cell}: the {route} route's "
+                      f"WAV differs from the default route's (run {i})")
+                summ = sc.summary()
+                check(summ["J9"] > 0 and summ["most_captures_a_thread_key"]
+                      <= 1, f"G4 {cell} {route}: {summ}")
+                if not graphs:
+                    check(summ["eager"] == summ["captures"]
+                          == summ["replays"] == 0,
+                          f"G4 {cell}: the eager route used a holder")
+                k1.add(launches)
+                runs.append(summ)
+                if graphs and i == 0:
+                    warm = dict(wall_s=wall, **summ)
+                    continue
+                walls.append(wall)
+                stitch.append(stage_t.get("stitch", 0.0))
+                last = stage_t
+                if cell == "noisy" and graphs:
+                    out["calls"] = sc.last
+            check(len(k1) == 1 and k1 == {dk1}, f"G4 {cell}: K1 launches "
+                  f"{k1} a {route} run, default route {dk1}")
+            fps = [frames / w for w in walls]
+            r = res[route] = dict(
+                runs=len(walls), fps_runs=fps, wall_runs=walls,
+                stitch_s_runs=stitch, k1_launches=min(k1),
+                stage_t_last={k: round(v, 4) for k, v in last.items()},
+                calls_a_run=runs[-1])
+            if len(fps) >= 2:
+                r["fps_q1"], r["fps_median"], r["fps_q3"] = quartiles(fps)
+            else:
+                r["fps_median"] = fps[0]
+            if graphs:
+                r["warm_up"] = warm
+        for route in ("graph", "eager"):
+            r = res[route]
+            print(f"[G4-{cell}] {route} route: {r['fps_median']} frames/s"
+                  f" (median of {r['runs']}"
+                  + (f", quartiles {r['fps_q1']}, {r['fps_q3']}"
+                     if r["runs"] >= 2 else "")
+                  + f"; decode wall {statistics.median(r['wall_runs'])} s"
+                  f", stitch {statistics.median(r['stitch_s_runs'])} s "
+                  f"summed over the stitch threads); J9/J10 calls, holder "
+                  f"moves and threads a run {r['calls_a_run']}"
+                  + (f"; warm-up run {r['warm_up']}" if route == "graph"
+                     else "")
+                  + f"; stage_t {r['stage_t_last']}; K1 launches "
+                  f"{r['k1_launches']} a run on {card}")
+        print(f"[G4-{cell}] default route (seam_backend=\"auto\"): "
+              f"{res['default_wall_s']} s; every WAV of both routes equals "
+              f"its WAV" + (" and the pinned JAX hash" if cell == "m2"
+                            else ""))
+        out[cell] = res
+    prof = {}
+    for graphs, route in ((True, "graph"), (False, "eager")):
+        tr = traced(lambda: run("m2", f"p{route}", seam_backend="tpu",
+                                graphs=graphs))
+        wavs, wall, _, sc, _ = tr["result"]
+        check(wavs == defaults["m2"], f"G4 m2: the traced {route} "
+              "run's WAV differs")
+        summ = sc.summary()
+        # The graph route's launches: the seam replays and V2D's.
+        check(tr["graph_launches"] >= summ["replays"] > 0 if graphs
+              else tr["graph_launches"] == 0,
+              f"G4 m2 {route}: {tr['graph_launches']} graph launches, "
+              f"{summ['replays']} seam replays")
+        prof[route] = dict(busy_ms=tr["busy_ms"],
+                           idle_share=1 - tr["busy_ms"] / (wall * 1e3),
+                           kernel_rows=tr["kernel_rows"],
+                           copy_rows=tr["copy_rows"],
+                           graph_launches=tr["graph_launches"],
+                           seam_replays=summ["replays"])
+        print(f"[G4-m2] traced {route} run: device busy "
+              f"{prof[route]['busy_ms']} ms of {wall * 1e3} ms = idle "
+              f"share {prof[route]['idle_share']}; "
+              f"{prof[route]['kernel_rows']} CUDA kernel rows, "
+              f"{prof[route]['copy_rows']} copy rows, "
+              f"{prof[route]['graph_launches']} graph launches "
+              f"({summ['replays']} seam replays) on {card}")
+    out["traced_runs"] = prof
+    for prog in ("J9", "J10"):
+        a, k = out["calls"][prog]
+        st = out[prog] = seam_call_stats(prog, a, k)
+        shape = (f"L {len(a[0])}, B {a[4]}" if prog == "J9"
+                 else f"fields {len(a[0])} / {len(a[2])} lines")
+        for route in ("graph", "eager"):
+            print(f"[G4-{prog}] one {route} call ({shape}): "
+                  f"{st[route]['host_ms']} ms host (median of 20); traced:"
+                  f" {st[route]['kernel_rows']} CUDA kernel rows, "
+                  f"{st[route]['copy_rows']} copy rows, host calls "
+                  f"{st[route]['host_calls']}, device busy "
+                  f"{st[route]['busy_ms']} ms on {card}")
+    del out["calls"]
+    return out, fb.stc007_fused_decode_frames.launches
 
 
 # ---- PCM-1 / PCM-16x0 (phases P1-P5) ---------------------------------------
@@ -2866,6 +3151,9 @@ def main():
     g3, launches_g3 = stream_graph_phase(dev, card, tmp, big, px, cd,
                                          levels)
 
+    # -- phase G4: the stitcher's device seam route as graphs --------------
+    g4, launches_g4 = seam_graph_phase(card, tmp, big, noisy_cap)
+
     # -- phases C1-C9: containers, multi-GPU, ArVid and Queue 3's paths --
     launches_ingest, errs_ingest, ingest_times = ingest_phases(
         dev, card, tmp, golden, big, cli_caps["noisy"],
@@ -2904,9 +3192,10 @@ def main():
                    "pcm_device": launches_pcm["pcm_device"],
                    "pcm_cli": launches_pcm["pcm_cli"],
                    "stream_graphs_G3": launches_g3,
+                   "seam_tpu_G4": launches_g4,
                    **launches_ingest,
                    "port_only_tree": s1["k1_launches"]}
-    print("[graphs-json] " + json.dumps(dict(G1=g1, G3=g3)))
+    print("[graphs-json] " + json.dumps(dict(G1=g1, G3=g3, G4=g4)))
     # ms: the kernel's device time at the main path's shape (the round's
     # 16 x 588 x 1152, NORMAL); the other shapes and modes in "timings".
     # No single PyTorch call computes the trial grid: library_ms is null.

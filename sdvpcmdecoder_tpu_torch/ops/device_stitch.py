@@ -17,7 +17,11 @@ Every function equals its JAX original exactly (values and dtypes) on the
 same inputs; tests/test_torch_device_stitch.py pins them. Differences of
 form, none of value:
   * torch runs eagerly, so the JAX package's jit wrappers and static
-    arguments are plain calls and Python arguments;
+    arguments are plain calls and Python arguments; the per-call seam
+    backend's two programs (_eval_rows_jit, _seam_sweep) replay as CUDA
+    graphs from the thread's round_graph holder instead, keyed by their
+    static arguments and bucketed shapes as jax.jit keys them
+    (graphs=False: eager); the round's graph is its driver's;
   * torch has almost no uint32 arithmetic: packed block words are int64
     here (every packed value is below 2**24) and the round writes them
     into its int32 buffer unchanged, as the JAX package's u32 -> i32
@@ -36,6 +40,8 @@ from ..formats import stc007
 from . import binarize as bz
 from . import deinterleave as di
 from . import fused_binarize as fb
+from ..utils.host import HostCopy, upload
+from .round_graph import thread_graphs
 
 KEEP = stc007.MIN_DEINT_DATA + stc007.INTERLEAVE_OFS // 2   # 120
 P_MAX = stc007.INTERLEAVE_OFS * 2                           # 32 paddings
@@ -221,12 +227,40 @@ def _bucket(n, step=128):
     return max(step, -(-n // step) * step)
 
 
+def _on_device(name, body, inputs, static, device, graphs):
+    """body(*inputs) on `device`, inputs host tensors, each output copied
+    to the host (numpy) before this returns: with `graphs` a replay of the
+    key (name, the static arguments) from the thread's holder
+    (round_graph.thread_graphs), as jax.jit compiles the JAX package's
+    programs once per shape and static arguments; else eagerly on the
+    inputs uploaded. Each output is copied (HostCopy) before the thread's
+    next call can replay into it, and one wait covers them all."""
+    if graphs:
+        outs = thread_graphs(device).run((name,) + static, body, inputs)
+    else:
+        outs = body(*(upload(t, device) for t in inputs))
+    return [c.numpy() for c in [HostCopy(o) for o in outs]]
+
+
+def _eval_rows_body(en_p, en_q, force_ecc, m2):
+    """The JAX package's _eval_rows_jit: its static arguments bound, the
+    row maps and the per-block modes inputs."""
+    def body(line_words, line_crc, rows, modes):
+        flags, samples, batch = eval_rows_device(
+            line_words, line_crc, rows, modes, en_p, en_q, force_ecc, m2)
+        return tuple(t.contiguous() for t in (*batch, flags, samples))
+    return body
+
+
 def eval_rows_arrays(line_words_i32, line_crc8, rows, start, n_blocks,
-                     res_mode, en_p, en_q, force_ecc, m2, *, device="cuda"):
+                     res_mode, en_p, en_q, force_ecc, m2, *, device="cuda",
+                     graphs=True):
     """Device twin of stitch_native.eval_rows_arrays: one call on
-    `device`. rows=None means contiguous shifts from `start`. The line
-    buffer is zero-padded to a 128-line bucket, as in the JAX package, so
-    that rows past its end read the same (zero or clamped) lines there.
+    `device`, with `graphs` one CUDA graph launch (_on_device). rows=None
+    means contiguous shifts from `start`. L and B are padded to 128-line
+    buckets, as in the JAX package, so a capture's whole decode replays a
+    handful of graphs, and rows past the buffer's end read the same (zero
+    or clamped) lines there.
 
     Returns numpy (words i64 [B,8], valid, line_crc, state, stage, res,
     flags, samples) -- the exact native-core output contract."""
@@ -236,20 +270,21 @@ def eval_rows_arrays(line_words_i32, line_crc8, rows, start, n_blocks,
         rows = (np.arange(start, start + B, dtype=np.int64)[:, None]
                 + taps[None, :])
     L = line_words_i32.shape[0]
-    Lp = _bucket(L)
+    Lp, Bp = _bucket(L), _bucket(B)
     w = np.zeros((Lp, 8), np.int32)
     c = np.zeros((Lp, 8), bool)
     w[:L] = line_words_i32
     c[:L] = line_crc8
-    r = np.asarray(rows).astype(np.int32)
-    modes = torch.full((B,), res_mode, dtype=torch.int32, device=device)
-    flags, samples, batch = eval_rows_device(
-        torch.as_tensor(w, device=device), torch.as_tensor(c, device=device),
-        torch.as_tensor(r, device=device), modes, bool(en_p), bool(en_q),
-        bool(force_ecc), bool(m2))
-    words, valid, lcrc, state, stage, res = (t.cpu().numpy() for t in batch)
-    return (words.astype(np.int64), valid, lcrc, state, stage, res,
-            flags.cpu().numpy(), samples.cpu().numpy())
+    r = np.zeros((Bp, 8), np.int32)
+    r[:B] = rows
+    modes = np.full(Bp, res_mode, np.int32)
+    static = (bool(en_p), bool(en_q), bool(force_ecc), bool(m2))
+    words, valid, lcrc, state, stage, res, flags, samples = _on_device(
+        "eval_rows", _eval_rows_body(*static),
+        tuple(torch.from_numpy(a) for a in (w, c, r, modes)), static,
+        device, graphs)
+    return (words[:B].astype(np.int64), valid[:B], lcrc[:B], state[:B],
+            stage[:B], res[:B], flags[:B], samples[:B])
 
 
 def _seam_sweep(f1_words, f1_crc, f1_len, f2_words, f2_crc, f2_len,
@@ -259,8 +294,9 @@ def _seam_sweep(f1_words, f1_crc, f1_len, f2_words, f2_crc, f2_len,
     f1_words [KEEP, 8] i32: field-1 tail, RIGHT-aligned (row KEEP-1 is
     the field's last line; unused leading rows are never referenced).
     f2_words [KEEP, 8]: field-2 head, top-aligned. f1_len/f2_len the full
-    field lengths (ints). modes [P_MAX] i32 res mode per padding (-1 =
-    skip). unch_lim [P_MAX] i32 per pad.
+    field lengths (int32 tensors, as the JAX package traces them: one
+    graph serves every seam). modes [P_MAX] i32 res mode per padding
+    (-1 = skip). unch_lim [P_MAX] i32 per pad.
     Returns (stats [P_MAX, 4] i32, nb [P_MAX] i32).
     """
     device = f1_words.device
@@ -269,8 +305,8 @@ def _seam_sweep(f1_words, f1_crc, f1_len, f2_words, f2_crc, f2_len,
     master_c = torch.cat([f1_crc, torch.zeros((1, 8), dtype=torch.bool,
                                               device=device), f2_crc])
     pads = torch.arange(P_MAX, dtype=i32, device=device)
-    len1 = torch.clamp(KEEP - pads, max=f1_len)                # [P]
-    count2 = min(f2_len, KEEP)
+    len1 = torch.minimum(KEEP - pads, f1_len)                # [P]
+    count2 = torch.clamp(f2_len, max=KEEP)
     nb = len1 + pads + count2 - stc007.MIN_DEINT_DATA        # [P]
     taps = torch.arange(8, dtype=i32, device=device) * stc007.INTERLEAVE_OFS
     r = (torch.arange(B_MAX, dtype=i32, device=device)[None, :, None]
@@ -313,8 +349,9 @@ def _top_aligned_head(words, crc8, cap=KEEP):
 
 
 def seam_sweep(f1_words, f1_crc8, f2_words, f2_crc8, silent_w32, modes,
-               en_p, en_q, m2, unch_lim, *, device="cuda"):
-    """Host wrapper: all-paddings seam stats on `device`.
+               en_p, en_q, m2, unch_lim, *, device="cuda", graphs=True):
+    """Host wrapper: all-paddings seam stats on `device`, with `graphs`
+    one CUDA graph launch (_on_device; one key serves every seam).
 
     f1/f2 words [n,8] i32 + crc8 [n,8] bool (full fields; only the
     KEEP-row tail/head is shipped), modes len<=P_MAX ints (-1 skip),
@@ -331,13 +368,15 @@ def seam_sweep(f1_words, f1_crc8, f2_words, f2_crc8, silent_w32, modes,
                                     np.asarray(f1_crc8, bool))
     w2, c2, _ = _top_aligned_head(np.asarray(f2_words, np.int32),
                                   np.asarray(f2_crc8, bool))
-    t = lambda a: torch.as_tensor(a, device=device)
-    stats, nb = _seam_sweep(
-        t(w1), t(c1), len(f1_words), t(w2), t(c2), len(f2_words),
-        t(np.asarray(silent_w32, np.int32)), t(md), t(ulf),
-        bool(en_p), bool(en_q), bool(m2))
-    stats = stats.cpu().numpy()[:P]
-    nb = nb.cpu().numpy()[:P]
+    static = (bool(en_p), bool(en_q), bool(m2))
+    stats, nb = _on_device(
+        "seam_sweep", lambda *a: _seam_sweep(*a, *static),
+        tuple(torch.from_numpy(np.asarray(a)) for a in (
+            w1, c1, np.int32(len(f1_words)), w2, c2,
+            np.int32(len(f2_words)),
+            np.ascontiguousarray(silent_w32, np.int32), md, ulf)),
+        static, device, graphs)
+    stats, nb = stats[:P], nb[:P]
     has = (nb > 0) & (md[:P] >= 0)
     return stats, has
 

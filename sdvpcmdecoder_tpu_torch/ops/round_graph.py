@@ -17,7 +17,17 @@ it, one graph launch per call. Its callers:
   * the PCM-1 / PCM-16x0 grid, `jax.jit(pcm1_frame_decode)` and
     `jax.jit(pcm16x0_frame_decode)` (pipeline/v2d_other.PCMFrameDriver);
   * the stream chain, `jax.jit(decode_stream)` and `jax.jit(
-    decode_frames)` (pipeline/decoder.py; parallel/mesh.py's step).
+    decode_frames)` (pipeline/decoder.py; parallel/mesh.py's step);
+  * the STC-007 stitcher's device seam route (seam_backend="tpu"), the
+    JAX package's `_eval_rows_jit` and `_seam_sweep`
+    (ops/device_stitch.eval_rows_arrays, seam_sweep): each block eval of
+    the resolution counts, the seams, the conv queue and the final
+    deinterleave, and each padding search, one graph launch. They run on
+    the thread that stitches, a pipeline/batch_driver.BatchDecoder
+    stitch-pool thread or the caller's own. Each such thread's holder
+    pays a key's eager use and its capture once, so a pool of N threads
+    may capture a key N times, and a new pool (each BatchDecoder makes
+    its own) captures its keys again.
 
 The rules:
 

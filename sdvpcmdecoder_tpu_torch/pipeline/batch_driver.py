@@ -28,7 +28,10 @@ call of the drivers (the batch's trial grid, the marker fallback's
 re-decode, the level sweeps, the PCM grid) replays as a CUDA graph from
 the thread's ops/round_graph.RoundGraphs on `device`, `stream_graphs`
 (round_graph.thread_graphs), which all the jobs' drivers share with any
-other decoder of the thread; graphs=False runs them eagerly.
+other decoder of the thread; graphs=False runs them eagerly.  The flag
+reaches the STC-007 stitchers too: under seam_backend="tpu" their device
+calls replay from the holder of the thread that stitches (a stitch-pool
+thread, or this one for a job's last stitch).
 """
 from __future__ import annotations
 
@@ -180,7 +183,8 @@ class BatchDecoder:
                                   else preset_order),
                     preset_resolution=preset_resolution,
                     preset_sample_rate=preset_sample_rate or 0,
-                    seam_backend=seam_backend, device=device)
+                    seam_backend=seam_backend, device=device,
+                    graphs=graphs)
             elif fmt == "pcm1":
                 from . import stitcher_pcm1 as sp1
                 from . import v2d_other

@@ -590,7 +590,7 @@ def _res_mode_is16(res_mode):
 def eval_blocks(store: LineStore, res_mode, ignore_crc=False,
                 force_ecc=True, en_p=True, en_q=True, en_cwd=False,
                 start=0, stop=None, m2=False, full_aux=True,
-                backend=None, device="cuda"):
+                backend=None, device="cuda", graphs=True):
     """Run the vectorized deinterleaver over shifts [start, stop).
 
     Equivalent of the reference's serial processBlock sweep. Returns
@@ -615,7 +615,7 @@ def eval_blocks(store: LineStore, res_mode, ignore_crc=False,
                                     en_q=en_q, en_cwd=en_cwd, m2=m2,
                                     full_aux=full_aux, start=start,
                                     n_blocks=stop - start, backend=backend,
-                                    device=device)
+                                    device=device, graphs=graphs)
     aux["shifts"] = shifts
     return batch, cwd_app, aux
 
@@ -623,7 +623,7 @@ def eval_blocks(store: LineStore, res_mode, ignore_crc=False,
 def eval_rows(store: LineStore, rows, res_mode, ignore_crc=False,
               force_ecc=True, en_p=True, en_q=True, en_cwd=False, m2=False,
               full_aux=True, start=0, n_blocks=None, backend=None,
-              device="cuda"):
+              device="cuda", graphs=True):
     """eval_blocks core over explicit per-block line rows [B, 8].
 
     rows[b, w] is the absolute line index feeding interleave tap w of
@@ -644,7 +644,8 @@ def eval_rows(store: LineStore, rows, res_mode, ignore_crc=False,
     if backend == "tpu" and not en_cwd:
         return _eval_rows_tpu(store, rows, crc_ok, res_mode, force_ecc,
                               en_p, en_q, m2, full_aux=full_aux,
-                              start=start, n_blocks=n_blocks, device=device)
+                              start=start, n_blocks=n_blocks, device=device,
+                              graphs=graphs)
     from ..ops import stitch_native as _sn
     if _sn.available():
         return _eval_rows_native(store, rows, crc_ok, cwd_line, res_mode,
@@ -764,7 +765,8 @@ def _eval_rows_native(store, rows, crc_ok, cwd_line, res_mode, force_ecc,
 
 
 def _eval_rows_tpu(store, rows, crc_ok, res_mode, force_ecc, en_p, en_q,
-                   m2, full_aux=True, start=0, n_blocks=None, device="cuda"):
+                   m2, full_aux=True, start=0, n_blocks=None, device="cuda",
+                   graphs=True):
     """eval_rows via the device (ops.device_stitch.eval_rows_arrays):
     gather + ECC + flags + samples in one jitted dispatch, the compute
     path of the --backend tpu stitcher; output contract identical to
@@ -776,7 +778,7 @@ def _eval_rows_tpu(store, rows, crc_ok, res_mode, force_ecc, en_p, en_q,
         else store.words
     w, v, lc, state, stage, res, flags, samples = _ds.eval_rows_arrays(
         w_src, crc_ok, rows, start, B, res_mode, en_p, en_q, force_ecc,
-        m2, device=device)
+        m2, device=device, graphs=graphs)
     batch = di.BlockBatch(w, v, lc, state, stage, res)
     cwd_app = np.zeros(B, bool)
     aux = dict(rows=rows, start=start,
@@ -881,16 +883,21 @@ class STC007Stitcher:
                  max_unch_14=MAX_BURST_UNCH_14BIT,
                  max_unch_16=MAX_BURST_UNCH_16BIT, fix_cut_above=False,
                  auto_m2=False, record_views=False, seam_backend="auto",
-                 device="cuda"):
+                 device="cuda", graphs=True):
         # seam_backend: "auto" (native when compiled, else numpy) or
         # "tpu" — the stitcher's compute (padding search scored in one
         # batched dispatch per seam, field resolution counts, and the
         # final deinterleave+ECC block eval) runs on the device
         # (ops.device_stitch, SURVEY §7.5); only the stage machine and
         # the finalize masking tail stay host Python.  "tpu" names the
-        # device backend; `device` is the torch device it runs on.
+        # device backend; `device` is the torch device it runs on.  With
+        # `graphs` each of its device calls replays as a CUDA graph from
+        # the calling thread's ops/round_graph holder (the JAX package's
+        # jitted _eval_rows_jit and _seam_sweep); graphs=False runs them
+        # eagerly.
         self.seam_backend = seam_backend
         self.device = torch.device(device)
+        self.graphs = graphs
         self.en_p, self.en_q, self.en_cwd = en_p, en_q, en_cwd
         self.ignore_crc = ignore_crc
         self.mode_m2 = mode_m2
@@ -1295,7 +1302,7 @@ class STC007Stitcher:
                     en_q=False, stop=test_size, m2=self.mode_m2,
                     full_aux=False,
                     backend="tpu" if self.seam_backend == "tpu" else None,
-                    device=self.device)
+                    device=self.device, graphs=self.graphs)
                 good = aux["block_valid"] & aux["can_force"] \
                     & ~aux["silent"]
                 broken = aux["broken"]
@@ -1560,7 +1567,7 @@ class STC007Stitcher:
             field1.words_i32(), field1.crc_ok8(),
             field2.words_i32(), field2.crc_ok8(),
             self._silent_words32(), modes, self.en_p, self.en_q,
-            self.mode_m2, unch, device=self.device)
+            self.mode_m2, unch, device=self.device, graphs=self.graphs)
         return [StitchStats(index=p, valid=int(stats[p, 0]),
                             silent=int(stats[p, 1]),
                             unchecked=int(stats[p, 2]),
@@ -2485,7 +2492,7 @@ class STC007Stitcher:
         qc = np.concatenate([a_c, np.zeros((pad_n, 8), bool), c_c])
         _, _, _, _, _, _, flags, _ = _ds.eval_rows_arrays(
             qw, qc, None, 0, B, res_mode, self.en_p, self.en_q, True,
-            self.mode_m2, device=self.device)
+            self.mode_m2, device=self.device, graphs=self.graphs)
         vmax, smax, umax, bcnt = self._burst_from_aux(
             dict(flags=flags), unch_lim)
         return np.array([vmax, smax, umax, bcnt], np.int32)
@@ -2512,7 +2519,8 @@ class STC007Stitcher:
             for j, mode in ((0, di.RES_MODE_14BIT), (1, di.RES_MODE_16BIT)):
                 _, _, _, _, _, _, flags, _ = _ds.eval_rows_arrays(
                     fld.words_i32(), fld.crc_ok8(), None, 0, ts, mode,
-                    True, False, True, m2, device=self.device)
+                    True, False, True, m2, device=self.device,
+                    graphs=self.graphs)
                 res_counts[k + j] = self._res_counts_from_flags(flags, ts)
         seam_stats = np.zeros(8, np.int32)
         # Inner seam.
@@ -2565,7 +2573,7 @@ class STC007Stitcher:
                     None)
         _, valid, lcrc, _, _, _, flags, samples = _ds.eval_rows_arrays(
             qw, qc, None, 0, B, conv_mode, self.en_p, self.en_q, True,
-            m2, device=self.device)
+            m2, device=self.device, graphs=self.graphs)
         samples, wvalid, wfixed, bvalid, counters, countdown = \
             self._finalize_blocks_steady(flags, valid, lcrc, samples)
         return (countdown, res_counts, seam_stats, samples, wvalid,
@@ -3718,7 +3726,8 @@ class STC007Stitcher:
             conv, res_mode, ignore_crc=self.ignore_crc,
             force_ecc=not self.ignore_crc, en_p=self.en_p, en_q=self.en_q,
             en_cwd=self.en_cwd, m2=self.mode_m2,
-            backend="tpu" if on_tpu else None, device=self.device)
+            backend="tpu" if on_tpu else None, device=self.device,
+            graphs=self.graphs)
         rate = self._block_sample_rate()
 
         silent = aux["silent"]

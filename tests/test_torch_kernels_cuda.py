@@ -4,6 +4,8 @@ is false. On a GPU machine run them with
 
     python -m pytest tests/test_torch_kernels_cuda.py -m cuda
 """
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -135,10 +137,11 @@ def test_binarize_kernel_plain_staging(cuda, layout):
     assert_batches_equal(got, bz.LineBatch(*(t[0] for t in expect)))
 
 
-def test_wrappers_launch_one_kernel_and_copy_nothing(cuda):
-    """On CUDA tensors each wrapper call is one kernel launch and no
-    host-to-device copy (torch.profiler's CUDA rows of one call)."""
+def wrapper_rows():
+    """torch.profiler's CUDA rows of one call of each wrapper on CUDA
+    tensors (chip_smoke.cuda_rows), by wrapper."""
     import chip_smoke
+    cuda = torch.device("cuda")
     px, cd = noisy_frames(16, 588, 10.0, seed=11, device=cuda)
     lv = [torch.full((16,), v, dtype=torch.int32, device=cuda)
           for v in (110, 20, 200)]
@@ -147,11 +150,41 @@ def test_wrappers_launch_one_kernel_and_copy_nothing(cuda):
     calls = {
         "frames": lambda: fb.stc007_fused_decode_frames(px, cd, *lv),
         "group": lambda: fb.stc007_fused_decode(px[0], coords, *glv)}
-    for name, fn in calls.items():
-        rows = chip_smoke.cuda_rows(fn)
-        assert rows["kernels"] == ["stc007_binarize_frames_kernel"], \
-            (name, rows)
-        assert rows["copies"] == [], (name, rows)
+    return {name: chip_smoke.cuda_rows(fn) for name, fn in calls.items()}
+
+
+# Runs wrapper_rows in a process of its own. In a process where
+# torch.profiler has traced the card and two threads have then captured
+# CUDA graphs (test_torch_round_graph_cuda.py's
+# test_two_threads_capture_on_one_card after the traced tests of the
+# graph files), every later trace holds no CUDA row at all, for any
+# kernel: CUPTI's state, not the wrapper's.
+WRAPPER_ROWS = """
+import json, sys
+sys.path[:0] = [sys.argv[1], sys.argv[2]]
+import test_torch_kernels_cuda
+print("ROWS " + json.dumps(test_torch_kernels_cuda.wrapper_rows()))
+"""
+
+
+def test_wrappers_launch_one_kernel_and_copy_nothing(cuda):
+    """On CUDA tensors each wrapper call is one kernel launch and no
+    host-to-device copy (torch.profiler's CUDA rows of one call, taken in
+    a fresh process so that no earlier test's tracing bears on it)."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    tests = Path(__file__).resolve().parent
+    proc = subprocess.run(
+        [sys.executable, "-c", WRAPPER_ROWS, str(tests.parent), str(tests)],
+        cwd=tests.parent, capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    rows = json.loads(proc.stdout.split("ROWS ", 1)[1])
+    assert set(rows) == {"frames", "group"}
+    for name, r in rows.items():
+        assert r["kernels"] == ["stc007_binarize_frames_kernel"], \
+            (name, r)
+        assert r["copies"] == [], (name, r)
 
 
 @pytest.mark.parametrize("lines,limits", [

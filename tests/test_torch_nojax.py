@@ -202,6 +202,25 @@ with tempfile.TemporaryDirectory() as tmp:
         assert cli_main([cap, "-o", f"{tmp}/c.wav", "--format", fmt,
                          "--backend", backend, "--device", "cpu"]) == 0
 
+# The stitcher's device seam route (seam_backend="tpu"): its block evals
+# and padding searches replay from this thread's holder; the golden PAL
+# capture's WAV hashes as the JAX package's under both routes.
+import hashlib
+with tempfile.TemporaryDirectory() as tmp:
+    cap = chip_smoke.write_capture(f"{tmp}/g.y4m", 12, 294, seed=1)
+    for graphs in (True, False):
+        before = (sg.eager_rounds, sg.captures, sg.replays)
+        dec = bd.BatchDecoder([(cap, f"{tmp}/s.wav")], hyst_limit=2,
+                              shift_limit=1, frames_per_round=5,
+                              seam_backend="tpu", graphs=graphs,
+                              device="cpu")
+        dec.run()
+        assert dec.jobs[0].stitcher.graphs is graphs
+        digest = hashlib.sha256(open(f"{tmp}/s.wav", "rb").read())
+        assert digest.hexdigest() == chip_smoke.GOLDEN_SHA256["pal"]
+        moved = (sg.eager_rounds, sg.captures, sg.replays) != before
+        assert moved == graphs and (not graphs or sg.replays > before[2])
+
 # Containers and their codecs, ArVid, V4L2 capture, multi-GPU and the
 # device histogram.
 from sdvpcmdecoder_tpu_torch.formats import arvid
