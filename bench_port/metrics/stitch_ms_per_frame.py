@@ -1,0 +1,6 @@
+"""Host milliseconds a frame in the program's `stage_t["stitch"]` span,
+summed over the window's decoders."""
+
+
+def read(rec):
+    return 1e3 * rec.stage_t.get("stitch", 0.0) / rec.frames
