@@ -23,6 +23,11 @@ import time
 
 import numpy as np
 
+from .utils.trace import Tracer
+
+# The stages the `timings:` line prints, in its order.
+TIMED_STAGES = ("read", "decode", "stitch", "audio")
+
 
 def build_parser():
     p = argparse.ArgumentParser(
@@ -233,6 +238,11 @@ def _decode_device(args, raw_size, mask_map, hyst, shift, out_path):
     return 0
 
 
+def _timings(trace):
+    return "timings: " + ", ".join(f"{k} {trace.stage_t[k]:.2f}s"
+                                   for k in TIMED_STAGES)
+
+
 def _frame_batches(rd, start, frames_arg, batch):
     """(base, frame_batch) pairs; handles live streams whose n_frames is
     unknown (ingest.StreamReader) by pulling until EOF."""
@@ -432,8 +442,7 @@ def main(argv=None):
 
         # Per-stage wall-time aggregates (the QElapsedTimer stage splits
         # of processLine / loopTime signals, batch-granular here).
-        stage_t = {"read": 0.0, "decode": 0.0, "stitch": 0.0,
-                   "audio": 0.0}
+        trace = Tracer()
 
         from .utils.stats import DecodeStats
         agg = DecodeStats()
@@ -443,119 +452,117 @@ def main(argv=None):
             # batch N overlaps the device decode of batch N+1.
             nonlocal frame_no, first, audio_out, audio_peak, \
                 frames_no_pcm, writer, live
-            t_st = time.perf_counter()
-            # Whole-batch queueing routes consecutive steady pairs
-            # through one stc007_steady_round call; per-frame pushes
-            # stay when the render/stats paths need per-frame state.
-            batch_push = not args.render_dir and not args.stats
-            round_stores = []
-            for (lines, nums), res in zip(split, results):
-                frame_no += 1
-                if res is None:
-                    # Dropped/no-PCM frame: push an all-invalid frame so
-                    # the interleave timing holds and the gap masks as
-                    # silence (the reference inserts dummy frames for
-                    # drops, ffmpegwrapper.cpp:898-907).
-                    line_counts[0] += len(nums)
-                    frames_no_pcm += 1
-                    store = st.LineStore(len(nums))
-                    store.frame_number[:] = frame_no
-                    store.line_number = np.asarray(nums, np.int64).copy()
-                else:
-                    line_counts[0] += len(nums)
-                    line_counts[1] += int(res.valid.sum())
-                    store = st.LineStore.from_decoded(
-                        res.words, res.crc_read, res.valid,
-                        np.full(len(nums), frame_no), nums,
-                        ref_level=np.full(len(nums), res.ref_level),
-                        forced_bad=res.forced_bad)
-                if first:
-                    tag = st.LineStore(1)
-                    tag.service[0] = st.SRV_NEW_FILE
-                    tag.frame_number[0] = frame_no
-                    store = st.LineStore.concat([tag, store])
-                    first = False
-                if batch_push:
-                    round_stores.append(store)
-                else:
-                    stitcher.push_frame(store)
-                if args.dump_lines and res is not None:
-                    from .utils import dump
-                    for row in dump.dump_lines(
+            with trace.span("stitch"):
+                # Whole-batch queueing routes consecutive steady pairs
+                # through one stc007_steady_round call; per-frame pushes
+                # stay when the render/stats paths need per-frame state.
+                batch_push = not args.render_dir and not args.stats
+                round_stores = []
+                for (lines, nums), res in zip(split, results):
+                    frame_no += 1
+                    if res is None:
+                        # Dropped/no-PCM frame: push an all-invalid frame so
+                        # the interleave timing holds and the gap masks as
+                        # silence (the reference inserts dummy frames for
+                        # drops, ffmpegwrapper.cpp:898-907).
+                        line_counts[0] += len(nums)
+                        frames_no_pcm += 1
+                        store = st.LineStore(len(nums))
+                        store.frame_number[:] = frame_no
+                        store.line_number = np.asarray(nums, np.int64).copy()
+                    else:
+                        line_counts[0] += len(nums)
+                        line_counts[1] += int(res.valid.sum())
+                        store = st.LineStore.from_decoded(
                             res.words, res.crc_read, res.valid,
-                            fmt="stc007", line_numbers=nums,
-                            limit=args.dump_lines):
-                        print(f"F[{frame_no:04d}] {row}")
-                if args.render_dir and res is not None:
-                    from .pipeline import render as rn
-                    import os
-                    os.makedirs(args.render_dir, exist_ok=True)
-                    img = rn.render_stc007_lines(res.words, res.crc_read,
-                                                 res.valid)
-                    rn.write_ppm(os.path.join(
-                        args.render_dir, f"frame_{frame_no:05d}.ppm"), img)
-                    # Source view (the reference's first frame_vis
-                    # window).
-                    rn.write_ppm(os.path.join(
-                        args.render_dir, f"source_{frame_no:05d}.ppm"),
-                        rn.render_source_lines(lines))
-                    # Reassembled-frame + data-block views (frame_vis
-                    # windows 3 and 4, mainwindow.h:393-396).
-                    if stitcher.last_assembled is not None:
-                        asm = stitcher.last_assembled
+                            np.full(len(nums), frame_no), nums,
+                            ref_level=np.full(len(nums), res.ref_level),
+                            forced_bad=res.forced_bad)
+                    if first:
+                        tag = st.LineStore(1)
+                        tag.service[0] = st.SRV_NEW_FILE
+                        tag.frame_number[0] = frame_no
+                        store = st.LineStore.concat([tag, store])
+                        first = False
+                    if batch_push:
+                        round_stores.append(store)
+                    else:
+                        stitcher.push_frame(store)
+                    if args.dump_lines and res is not None:
+                        from .utils import dump
+                        for row in dump.dump_lines(
+                                res.words, res.crc_read, res.valid,
+                                fmt="stc007", line_numbers=nums,
+                                limit=args.dump_lines):
+                            print(f"F[{frame_no:04d}] {row}")
+                    if args.render_dir and res is not None:
+                        from .pipeline import render as rn
+                        import os
+                        os.makedirs(args.render_dir, exist_ok=True)
+                        img = rn.render_stc007_lines(res.words, res.crc_read,
+                                                     res.valid)
                         rn.write_ppm(os.path.join(
-                            args.render_dir,
-                            f"assembled_{frame_no:05d}.ppm"),
-                            rn.render_stc007_lines(
-                                asm.words, asm.source_crc,
-                                asm.crc_valid()))
-                        stitcher.last_assembled = None
-                    if stitcher.last_blocks is not None:
-                        lb = stitcher.last_blocks
+                            args.render_dir, f"frame_{frame_no:05d}.ppm"), img)
+                        # Source view (the reference's first frame_vis
+                        # window).
                         rn.write_ppm(os.path.join(
-                            args.render_dir,
-                            f"blocks_{frame_no:05d}.ppm"),
-                            rn.render_stc007_blocks(
-                                lb["words"], lb["valid"], lb["line_crc"],
-                                lb["fixed_p"], lb["fixed_q"],
-                                lb["broken"], lb["masked"]))
-                        stitcher.last_blocks = None
-                if args.stats and stitcher.frame_log:
-                    fr = stitcher.frame_log[-1]
-                    print(f"F[{fr.frame_number:04d}] "
-                          f"ord={'-TB'[fr.field_order]} "
-                          f"pad[{fr.inner_padding:02d}/"
-                          f"{fr.outer_padding:02d}] "
-                          f"blk[{fr.blocks_total:4d}] "
-                          f"P[{fr.blocks_fix_p:3d}] "
-                          f"Q[{fr.blocks_fix_q:3d}] "
-                          f"brk[{fr.blocks_broken_field:3d}] "
-                          f"drop[{fr.blocks_drop:3d}]")
-            if round_stores:
-                stitcher.push_frames(round_stores)
-            # Aggregate + drain the work log every batch: the log
-            # otherwise grows without bound over archive-length tapes.
-            for fr in stitcher.frame_log:
-                agg.add_frame(fr)
-            del stitcher.frame_log[:]
-            stage_t["stitch"] += time.perf_counter() - t_st
-            t_au = time.perf_counter()
-            # Drain periodically to bound memory.
-            arrs = st.chunks_to_arrays(stitcher.pop_sample_chunks())
-            if arrs is not None:
-                samples, valid, blk, rate = arrs
-                out = proc.process(samples, valid, blk, file_end=False)
-                audio_out += len(out)
-                if len(out):
-                    audio_peak = max(audio_peak, int(np.abs(out).max()))
-                if writer is None:
-                    writer = wav.WavWriter(out_path, rate)
-                    live = _make_live(args.live_audio, rate)
-                writer.write(out)
-                writer.flush()
-                if live is not None and len(out):
-                    live.save_audio(out)
-            stage_t["audio"] += time.perf_counter() - t_au
+                            args.render_dir, f"source_{frame_no:05d}.ppm"),
+                            rn.render_source_lines(lines))
+                        # Reassembled-frame + data-block views (frame_vis
+                        # windows 3 and 4, mainwindow.h:393-396).
+                        if stitcher.last_assembled is not None:
+                            asm = stitcher.last_assembled
+                            rn.write_ppm(os.path.join(
+                                args.render_dir,
+                                f"assembled_{frame_no:05d}.ppm"),
+                                rn.render_stc007_lines(
+                                    asm.words, asm.source_crc,
+                                    asm.crc_valid()))
+                            stitcher.last_assembled = None
+                        if stitcher.last_blocks is not None:
+                            lb = stitcher.last_blocks
+                            rn.write_ppm(os.path.join(
+                                args.render_dir,
+                                f"blocks_{frame_no:05d}.ppm"),
+                                rn.render_stc007_blocks(
+                                    lb["words"], lb["valid"], lb["line_crc"],
+                                    lb["fixed_p"], lb["fixed_q"],
+                                    lb["broken"], lb["masked"]))
+                            stitcher.last_blocks = None
+                    if args.stats and stitcher.frame_log:
+                        fr = stitcher.frame_log[-1]
+                        print(f"F[{fr.frame_number:04d}] "
+                              f"ord={'-TB'[fr.field_order]} "
+                              f"pad[{fr.inner_padding:02d}/"
+                              f"{fr.outer_padding:02d}] "
+                              f"blk[{fr.blocks_total:4d}] "
+                              f"P[{fr.blocks_fix_p:3d}] "
+                              f"Q[{fr.blocks_fix_q:3d}] "
+                              f"brk[{fr.blocks_broken_field:3d}] "
+                              f"drop[{fr.blocks_drop:3d}]")
+                if round_stores:
+                    stitcher.push_frames(round_stores)
+                # Aggregate + drain the work log every batch: the log
+                # otherwise grows without bound over archive-length tapes.
+                for fr in stitcher.frame_log:
+                    agg.add_frame(fr)
+                del stitcher.frame_log[:]
+            with trace.span("audio"):
+                # Drain periodically to bound memory.
+                arrs = st.chunks_to_arrays(stitcher.pop_sample_chunks())
+                if arrs is not None:
+                    samples, valid, blk, rate = arrs
+                    out = proc.process(samples, valid, blk, file_end=False)
+                    audio_out += len(out)
+                    if len(out):
+                        audio_peak = max(audio_peak, int(np.abs(out).max()))
+                    if writer is None:
+                        writer = wav.WavWriter(out_path, rate)
+                        live = _make_live(args.live_audio, rate)
+                    writer.write(out)
+                    writer.flush()
+                    if live is not None and len(out):
+                        live.save_audio(out)
             if args.checkpoint:
                 from .utils import resume as ckpt
                 ckpt.save_checkpoint(
@@ -568,30 +575,28 @@ def main(argv=None):
         pending = []
         for base, batch in _frame_batches(rd, start_base, args.frames,
                                           args.batch):
-            t_rd = time.perf_counter()
-            if batch.shape[0] == 0:
-                stage_t["read"] += time.perf_counter() - t_rd
-                continue
-            lines_b, nums_all = ingest.split_fields_batch(batch)
-            split = [(lines_b[f], nums_all) for f in range(batch.shape[0])]
-            stage_t["read"] += time.perf_counter() - t_rd
-            t_dc = time.perf_counter()
-            # Pad the tail batch to the full batch size, as the JAX
-            # package does for its one compiled shape (the native grid
-            # takes any shape).
-            pad_frames = 0
-            if backend != "native" and lines_b.shape[0] < args.batch:
-                pad_frames = args.batch - lines_b.shape[0]
-                lines_b = np.concatenate(
-                    [lines_b, np.zeros((pad_frames,) + lines_b.shape[1:],
-                                       np.uint8)])
-            if backend == "native":
-                results = driver.decode_frames_host(lines_b)
-            else:
-                results = driver.decode_frames(lines_b)
-            if pad_frames:
-                results = results[:-pad_frames]
-            stage_t["decode"] += time.perf_counter() - t_dc
+            with trace.span("read"):
+                if batch.shape[0] == 0:
+                    continue
+                lines_b, nums_all = ingest.split_fields_batch(batch)
+                split = [(lines_b[f], nums_all)
+                         for f in range(batch.shape[0])]
+            with trace.span("decode"):
+                # Pad the tail batch to the full batch size, as the JAX
+                # package does for its one compiled shape (the native
+                # grid takes any shape).
+                pad_frames = 0
+                if backend != "native" and lines_b.shape[0] < args.batch:
+                    pad_frames = args.batch - lines_b.shape[0]
+                    lines_b = np.concatenate(
+                        [lines_b, np.zeros((pad_frames,)
+                                           + lines_b.shape[1:], np.uint8)])
+                if backend == "native":
+                    results = driver.decode_frames_host(lines_b)
+                else:
+                    results = driver.decode_frames(lines_b)
+                if pad_frames:
+                    results = results[:-pad_frames]
             pending.append(stitch_pool.submit(consume, split, results))
         for f in pending:
             f.result()
@@ -625,8 +630,7 @@ def main(argv=None):
     agg.peak_level = audio_peak
     agg.frames_no_pcm = frames_no_pcm
     print(agg.summary())
-    print("timings: " + ", ".join(f"{k} {v:.2f}s"
-                                  for k, v in stage_t.items()))
+    print(_timings(trace))
     print(f"decoded {frame_no} frames in {dt:.2f}s "
           f"({frame_no / dt:.1f} fps) -> {out_path}")
     return 0
@@ -673,7 +677,7 @@ def _decode_other_format(args, raw_size, mask_map, hyst, shift, out_path):
         backend=args.backend if args.backend in ("native", "tpu")
         else "auto", device=args.device)
     t0 = time.perf_counter()
-    stage_t = {"read": 0.0, "decode": 0.0, "stitch": 0.0, "audio": 0.0}
+    trace = Tracer()
     writer = None
     live = None
     frame_no = 0
@@ -694,122 +698,118 @@ def _decode_other_format(args, raw_size, mask_map, hyst, shift, out_path):
                                           args.batch):
             if batch.shape[0] == 0:
                 continue
-            t_rd = time.perf_counter()
-            lines_b, nums = ingest.split_fields_batch(batch)
-            L = lines_b.shape[1]
-            t_dc = time.perf_counter()
-            stage_t["read"] += t_dc - t_rd
-            results = driver.decode_frames(lines_b)
-            t_st = time.perf_counter()
-            stage_t["decode"] += t_st - t_dc
-            for f, res in enumerate(results):
-                frame_no += 1
-                if res is None:
-                    continue
-                wl1 = res.words
-                cl1 = res.crc_read
-                if args.dump_lines:
-                    from .utils import dump
-                    fmt_d = "pcm1" if args.format == "pcm1" else "pcm16x0"
-                    w_d = wl1 if fmt_d == "pcm1" \
-                        else np.asarray(wl1).reshape(-1, 3)
-                    c_d = cl1 if fmt_d == "pcm1" \
-                        else np.asarray(cl1).reshape(-1)
-                    v_d = res.valid if fmt_d == "pcm1" \
-                        else np.asarray(res.valid).reshape(-1)
-                    for row in dump.dump_lines(w_d, c_d, v_d, fmt=fmt_d,
-                                               limit=args.dump_lines):
-                        print(f"F[{frame_no:04d}] {row}")
-                if args.format == "pcm1":
-                    store = sp1.PCM1LineStore.from_decoded(
-                        wl1, cl1, np.full(L, frame_no), nums,
-                        ref_level=np.full(L, res.ref_level),
-                        valid=res.valid)
-                    if args.render_dir:
-                        from .pipeline import render as rn
-                        import os as _os
-                        _os.makedirs(args.render_dir, exist_ok=True)
-                        rn.write_ppm(_os.path.join(
-                            args.render_dir, f"frame_{frame_no:05d}.ppm"),
-                            rn.render_pcm1_lines(
-                                wl1, cl1, store.crc_valid()))
-                        rn.write_ppm(_os.path.join(
-                            args.render_dir,
-                            f"source_{frame_no:05d}.ppm"),
-                            rn.render_source_lines(lines_b[f]))
-                    if frame_no == 1:
-                        tag = sp1.PCM1LineStore(1)
-                        tag.service[0] = sp1.SRV_NEW_FILE
-                        tag.frame_number[0] = frame_no
-                        store = sp1.PCM1LineStore.concat([tag, store])
-                    stitcher.push_frame(store)
-                else:
-                    store = sp16.PCM16X0LineStore.from_decoded(
-                        wl1, cl1, np.full(L * 3, frame_no),
-                        np.repeat(nums, 3), np.tile(np.arange(3), L),
-                        control_bit=np.repeat(res.ctrl, 3),
-                        picked_left=res.picked_left,
-                        picked_right=res.picked_right, valid=res.valid)
-                    if args.render_dir:
-                        from .pipeline import render as rn
-                        import os as _os
-                        _os.makedirs(args.render_dir, exist_ok=True)
-                        rn.write_ppm(_os.path.join(
-                            args.render_dir, f"frame_{frame_no:05d}.ppm"),
-                            rn.render_pcm16x0_sublines(
-                                wl1, cl1, store.crc_valid(),
-                                control_bit=store.control_bit))
-                        rn.write_ppm(_os.path.join(
-                            args.render_dir,
-                            f"source_{frame_no:05d}.ppm"),
-                            rn.render_source_lines(lines_b[f]))
-                    if frame_no == 1:
-                        tag = sp16.PCM16X0LineStore(1)
-                        tag.service[0] = sp16.SRV_NEW_FILE
-                        tag.frame_number[0] = frame_no
-                        store = sp16.PCM16X0LineStore.concat([tag, store])
-                    stitcher.push_frame(store)
-            if args.stats:
-                # Per-frame work log (the MainWindow column log analog,
-                # mainwindow.h:115-194) for the PCM-1/16x0 paths.
-                for fr in stitcher.frame_log[-batch.shape[0]:]:
+            with trace.span("read"):
+                lines_b, nums = ingest.split_fields_batch(batch)
+                L = lines_b.shape[1]
+            with trace.span("decode"):
+                results = driver.decode_frames(lines_b)
+            with trace.span("stitch"):
+                for f, res in enumerate(results):
+                    frame_no += 1
+                    if res is None:
+                        continue
+                    wl1 = res.words
+                    cl1 = res.crc_read
+                    if args.dump_lines:
+                        from .utils import dump
+                        fmt_d = "pcm1" if args.format == "pcm1" else "pcm16x0"
+                        w_d = wl1 if fmt_d == "pcm1" \
+                            else np.asarray(wl1).reshape(-1, 3)
+                        c_d = cl1 if fmt_d == "pcm1" \
+                            else np.asarray(cl1).reshape(-1)
+                        v_d = res.valid if fmt_d == "pcm1" \
+                            else np.asarray(res.valid).reshape(-1)
+                        for row in dump.dump_lines(w_d, c_d, v_d, fmt=fmt_d,
+                                                   limit=args.dump_lines):
+                            print(f"F[{frame_no:04d}] {row}")
                     if args.format == "pcm1":
-                        print(f"F[{fr.frame_number:04d}] "
-                              f"ord={'-TB'[fr.field_order]} "
-                              f"hdr[{int(getattr(fr, 'header', 0))}] "
-                              f"emph[{int(fr.emphasis)}] "
-                              f"blk[{fr.blocks_total:4d}] "
-                              f"drop[{fr.blocks_drop:3d}]")
+                        store = sp1.PCM1LineStore.from_decoded(
+                            wl1, cl1, np.full(L, frame_no), nums,
+                            ref_level=np.full(L, res.ref_level),
+                            valid=res.valid)
+                        if args.render_dir:
+                            from .pipeline import render as rn
+                            import os as _os
+                            _os.makedirs(args.render_dir, exist_ok=True)
+                            rn.write_ppm(_os.path.join(
+                                args.render_dir, f"frame_{frame_no:05d}.ppm"),
+                                rn.render_pcm1_lines(
+                                    wl1, cl1, store.crc_valid()))
+                            rn.write_ppm(_os.path.join(
+                                args.render_dir,
+                                f"source_{frame_no:05d}.ppm"),
+                                rn.render_source_lines(lines_b[f]))
+                        if frame_no == 1:
+                            tag = sp1.PCM1LineStore(1)
+                            tag.service[0] = sp1.SRV_NEW_FILE
+                            tag.frame_number[0] = frame_no
+                            store = sp1.PCM1LineStore.concat([tag, store])
+                        stitcher.push_frame(store)
                     else:
-                        print(f"F[{fr.frame_number:04d}] "
-                              f"ord={'-TB'[fr.field_order]} "
-                              f"{'EI' if fr.ei_format else 'SI'} "
-                              f"pad[{fr.odd_padding:02d}/"
-                              f"{fr.even_padding:02d}/"
-                              f"{fr.inner_padding:02d}] "
-                              f"rate[{fr.sample_rate}] "
-                              f"emph[{int(fr.emphasis)}] "
-                              f"blk[{fr.blocks_total:4d}] "
-                              f"P[{fr.blocks_fix_p:3d}] "
-                              f"brk[{fr.blocks_broken:3d}] "
-                              f"drop[{fr.blocks_drop:3d}]")
-            # Bound the work log over archive-length tapes (nothing
-            # reads past-batch entries on this path).
-            del stitcher.frame_log[:]
-            t_au = time.perf_counter()
-            stage_t["stitch"] += t_au - t_st
-            arrs = chunks_to_arrays(stitcher.pop_sample_chunks())
-            if arrs is not None:
-                samples, valid2, blk2, rate = arrs
-                out = proc.process(samples, valid2, blk2, file_end=False)
-                if writer is None:
-                    writer = wav.WavWriter(out_path, rate)
-                    live = _make_live(args.live_audio, rate)
-                writer.write(out)
-                writer.flush()
-                if live is not None and len(out):
-                    live.save_audio(out)
-            stage_t["audio"] += time.perf_counter() - t_au
+                        store = sp16.PCM16X0LineStore.from_decoded(
+                            wl1, cl1, np.full(L * 3, frame_no),
+                            np.repeat(nums, 3), np.tile(np.arange(3), L),
+                            control_bit=np.repeat(res.ctrl, 3),
+                            picked_left=res.picked_left,
+                            picked_right=res.picked_right, valid=res.valid)
+                        if args.render_dir:
+                            from .pipeline import render as rn
+                            import os as _os
+                            _os.makedirs(args.render_dir, exist_ok=True)
+                            rn.write_ppm(_os.path.join(
+                                args.render_dir, f"frame_{frame_no:05d}.ppm"),
+                                rn.render_pcm16x0_sublines(
+                                    wl1, cl1, store.crc_valid(),
+                                    control_bit=store.control_bit))
+                            rn.write_ppm(_os.path.join(
+                                args.render_dir,
+                                f"source_{frame_no:05d}.ppm"),
+                                rn.render_source_lines(lines_b[f]))
+                        if frame_no == 1:
+                            tag = sp16.PCM16X0LineStore(1)
+                            tag.service[0] = sp16.SRV_NEW_FILE
+                            tag.frame_number[0] = frame_no
+                            store = sp16.PCM16X0LineStore.concat([tag, store])
+                        stitcher.push_frame(store)
+                if args.stats:
+                    # Per-frame work log (the MainWindow column log analog,
+                    # mainwindow.h:115-194) for the PCM-1/16x0 paths.
+                    for fr in stitcher.frame_log[-batch.shape[0]:]:
+                        if args.format == "pcm1":
+                            print(f"F[{fr.frame_number:04d}] "
+                                  f"ord={'-TB'[fr.field_order]} "
+                                  f"hdr[{int(getattr(fr, 'header', 0))}] "
+                                  f"emph[{int(fr.emphasis)}] "
+                                  f"blk[{fr.blocks_total:4d}] "
+                                  f"drop[{fr.blocks_drop:3d}]")
+                        else:
+                            print(f"F[{fr.frame_number:04d}] "
+                                  f"ord={'-TB'[fr.field_order]} "
+                                  f"{'EI' if fr.ei_format else 'SI'} "
+                                  f"pad[{fr.odd_padding:02d}/"
+                                  f"{fr.even_padding:02d}/"
+                                  f"{fr.inner_padding:02d}] "
+                                  f"rate[{fr.sample_rate}] "
+                                  f"emph[{int(fr.emphasis)}] "
+                                  f"blk[{fr.blocks_total:4d}] "
+                                  f"P[{fr.blocks_fix_p:3d}] "
+                                  f"brk[{fr.blocks_broken:3d}] "
+                                  f"drop[{fr.blocks_drop:3d}]")
+                # Bound the work log over archive-length tapes (nothing
+                # reads past-batch entries on this path).
+                del stitcher.frame_log[:]
+            with trace.span("audio"):
+                arrs = chunks_to_arrays(stitcher.pop_sample_chunks())
+                if arrs is not None:
+                    samples, valid2, blk2, rate = arrs
+                    out = proc.process(samples, valid2, blk2, file_end=False)
+                    if writer is None:
+                        writer = wav.WavWriter(out_path, rate)
+                        live = _make_live(args.live_audio, rate)
+                    writer.write(out)
+                    writer.flush()
+                    if live is not None and len(out):
+                        live.save_audio(out)
             if args.checkpoint:
                 from .utils import resume as ckpt
                 ckpt.save_checkpoint(
@@ -838,8 +838,7 @@ def _decode_other_format(args, raw_size, mask_map, hyst, shift, out_path):
     if live is not None:
         live.stop_output()
     dt = max(time.perf_counter() - t0, 1e-9)
-    print("timings: " + ", ".join(f"{k} {v:.2f}s"
-                                  for k, v in stage_t.items()))
+    print(_timings(trace))
     print(f"decoded {frame_no} frames in {dt:.2f}s "
           f"({frame_no / dt:.1f} fps) -> {out_path}")
     return 0

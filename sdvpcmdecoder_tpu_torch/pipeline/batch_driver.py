@@ -16,7 +16,12 @@ pixels straight off the capture mmap (no copies, no transfers).  "auto"
 is "tpu" on a CUDA device; for device="cpu" it picks native when the C++
 core is available (the JAX package's rule).  Level sweeps run on the
 device under every backend (V2DDriver.ref_sweep uses it either way).
-Per-stage wall time is accumulated in `stage_t`.
+Per-stage wall time is accumulated in `stage_t`, through the decoder's
+utils.trace.Tracer (`trace`).  `_stage` spans are the stages a subclass
+can hook (bench_port/harness.instrumented records them); the finer spans
+inside them (the stitch proper, a round's dispatch, the chip-resident
+drivers' staging parts, constructor parts and waits on the card) go to
+`trace.span` directly and are summed in `stage_t` alone.
 
 Port of sdvpcmdecoder_tpu/pipeline/batch_driver.py: STC-007 (M2
 through mode_m2), PCM-1, PCM-16x0 (SI, EI as "pcm1630") and fmt="auto".
@@ -35,10 +40,8 @@ thread, or this one for a job's last stitch).
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import time
-from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
@@ -46,6 +49,7 @@ import numpy as np
 import torch
 
 from ..utils.stats import DecodeStats
+from ..utils.trace import Tracer
 from . import audio as ap
 from . import ingest, v2d, wav
 from . import stitcher_stc007 as st
@@ -116,6 +120,11 @@ class BatchDecoder:
                  preset_order=None, preset_resolution=None,
                  preset_sample_rate=None, device="cuda", use_kernel=None,
                  graphs=True):
+        # A subclass that spans its whole constructor makes the tracer
+        # before calling this.
+        if getattr(self, "trace", None) is None:
+            self.trace = Tracer()
+        self.stage_t = self.trace.stage_t
         self.jobs = [CaptureJob(path=p, out_path=o) for p, o in jobs]
         self.frames_per_round = frames_per_round
         self.checkpoint = checkpoint
@@ -147,7 +156,6 @@ class BatchDecoder:
         if fmt != "stc007":
             backend = "native"  # round loop; the driver splits internally
         self.backend = backend
-        self.stage_t = defaultdict(float)
         # The drivers' graph holder, the thread's: a capture made for one
         # job's shape serves every job, and later decoders.
         from ..ops.round_graph import thread_graphs
@@ -219,13 +227,9 @@ class BatchDecoder:
         else:
             self.pool = ThreadPoolExecutor(n_workers)
 
-    @contextlib.contextmanager
     def _stage(self, name):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.stage_t[name] += time.perf_counter() - t0
+        """A span of the decoder's tracer: its seconds go to stage_t[name]."""
+        return self.trace.span(name)
 
     @staticmethod
     def _ckpt_path(job):
@@ -254,19 +258,19 @@ class BatchDecoder:
 
     def _stitch_and_write(self, job: CaptureJob, stores, finish=False):
         t0 = time.perf_counter()
-        if hasattr(job.stitcher, "push_frames"):
-            # Whole-round queue: consecutive steady STC-007 pairs run
-            # through one stc007_steady_round call.
-            job.stitcher.push_frames(stores)
-        else:
-            for store in stores:
-                job.stitcher.push_frame(store)
-        if finish:
-            job.stitcher.finish()
-        t1 = time.perf_counter()
-        self.stage_t["stitch"] += t1 - t0
+        with self.trace.span("stitch"):
+            if hasattr(job.stitcher, "push_frames"):
+                # Whole-round queue: consecutive steady STC-007 pairs run
+                # through one stc007_steady_round call.
+                job.stitcher.push_frames(stores)
+            else:
+                for store in stores:
+                    job.stitcher.push_frame(store)
+            if finish:
+                job.stitcher.finish()
         if stores:
-            job.stats.add_di_time(int((t1 - t0) * 1e6), len(stores))
+            job.stats.add_di_time(int((time.perf_counter() - t0) * 1e6),
+                                  len(stores))
         for fr in job.stitcher.frame_log[job.logged:]:
             job.stats.add_frame(fr)
         # Drain consumed entries: the log otherwise grows without bound
@@ -479,30 +483,25 @@ class BatchDecoder:
         _complete_round (non-blocking)."""
         if not round_work:
             return None
-        t0 = time.perf_counter()
-        try:
-            return self._dispatch_round_inner(round_work)
-        finally:
-            self.stage_t["dispatch"] += time.perf_counter() - t0
-
-    def _dispatch_round_inner(self, round_work):
-        fused = len(round_work) > 1 and len(
-            {w[2].shape[1:] for w in round_work}) == 1
-        if fused:
-            px = np.concatenate([w[2] for w in round_work])
-            prep = {k: np.concatenate([w[3][k] for w in round_work])
-                    for k in ("coords", "refs", "blacks", "whites",
-                              "usable")}
-            drv0 = round_work[0][0].driver
-            dev = drv0.dispatch_frames_async(px, prep)
-            return ("fused", px, prep, dev)
-        devs = []
-        for (j, split, lines_b, jprep) in round_work:
-            if not jprep["usable"].any():
-                devs.append(None)
-            else:
-                devs.append(j.driver.dispatch_frames_async(lines_b, jprep))
-        return ("per_job", devs)
+        with self.trace.span("dispatch"):
+            fused = len(round_work) > 1 and len(
+                {w[2].shape[1:] for w in round_work}) == 1
+            if fused:
+                px = np.concatenate([w[2] for w in round_work])
+                prep = {k: np.concatenate([w[3][k] for w in round_work])
+                        for k in ("coords", "refs", "blacks", "whites",
+                                  "usable")}
+                drv0 = round_work[0][0].driver
+                dev = drv0.dispatch_frames_async(px, prep)
+                return ("fused", px, prep, dev)
+            devs = []
+            for (j, split, lines_b, jprep) in round_work:
+                if not jprep["usable"].any():
+                    devs.append(None)
+                else:
+                    devs.append(j.driver.dispatch_frames_async(lines_b,
+                                                               jprep))
+            return ("per_job", devs)
 
     def _complete_round(self, round_work, ctx):
         if ctx is None:

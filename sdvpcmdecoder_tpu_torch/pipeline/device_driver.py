@@ -42,6 +42,7 @@ from ..formats import stc007
 from ..ops import device_stitch as ds
 from ..ops.round_graph import RoundGraphs
 from ..utils.host import HostCopy, host_call, upload
+from ..utils.trace import Tracer
 from . import batch_driver, ingest, v2d
 from . import stitcher_stc007 as st
 
@@ -51,6 +52,14 @@ MDD = stc007.MIN_DEINT_DATA
 
 def _gather_sample(px, idx):
     return px[:, idx, :]
+
+
+def _fetch_words(trace, wflat, a, b):
+    """A lazy store's words, rows a:b of the resident round words: a
+    `wait` span of the decoder's tracer. The stores hold the tracer, not
+    the decoder, so they keep no decoder alive."""
+    with trace.span("wait"):
+        return wflat[a:b].cpu().numpy()
 
 
 @functools.lru_cache(maxsize=None)
@@ -65,7 +74,16 @@ class StagedDeviceDecoder(batch_driver.BatchDecoder):
     bounded-chunk device staging, the capture round-robin visit loop
     (complete pending round → restage at the chunk edge → dispatch the
     next round), and the rounds-never-straddle-a-chunk rounding of
-    `hbm_frames`.  Subclasses provide _dispatch/_complete."""
+    `hbm_frames`.  Subclasses provide _dispatch/_complete.
+
+    Their constructors run under a `construct` span, with parts `open`
+    (BatchDecoder's readers, drivers and stitchers), `setup` (the device
+    state), the first chunks' `stage_hbm` and the `wait` for them; every
+    place the host blocks on the card is a `wait` span (`_wait`)."""
+
+    def _wait(self):
+        """A span where the host waits for the card."""
+        return self.trace.span("wait")
 
     def _round_hbm_frames(self, frames_per_round, hbm_frames):
         self.hbm_frames = max(frames_per_round,
@@ -91,25 +109,31 @@ class StagedDeviceDecoder(batch_driver.BatchDecoder):
         """Staging is part of setup, not decode: wait for the uploads so
         the first round's reads don't absorb the staging transfers
         (staging seconds are reported separately)."""
-        for j in self.jobs:
-            if j.px_ready is not None:
-                j.px_ready.synchronize()
+        with self._wait():
+            for j in self.jobs:
+                if j.px_ready is not None:
+                    j.px_ready.synchronize()
 
     def _stage_chunk(self, j, block=True):
         """Stage the next bounded chunk of frames on the device.  Returns
-        False at EOF (j.exhausted set)."""
+        False at EOF (j.exhausted set).  The upload, from pageable
+        memory, waits for the rounds queued on the device before it."""
         with self._stage("stage_hbm"):
-            batch = j.reader.read_frames(j.stage_next, self.hbm_frames)
+            with self.trace.span("stage_read"):
+                batch = j.reader.read_frames(j.stage_next, self.hbm_frames)
             if batch.shape[0] == 0:
                 j.exhausted = True
                 return False
-            lines_b, nums = ingest.split_fields_batch(batch)
-            j.px_dev = torch.from_numpy(lines_b).to(self.device,
-                                                    non_blocking=True)
-            j.px_ready = None
-            if self.device.type == "cuda":
-                j.px_ready = torch.cuda.Event()
-                j.px_ready.record(torch.cuda.current_stream(self.device))
+            with self.trace.span("stage_split"):
+                lines_b, nums = ingest.split_fields_batch(batch)
+            with self.trace.span("stage_upload"):
+                j.px_dev = torch.from_numpy(lines_b).to(self.device,
+                                                        non_blocking=True)
+                j.px_ready = None
+                if self.device.type == "cuda":
+                    j.px_ready = torch.cuda.Event()
+                    j.px_ready.record(
+                        torch.cuda.current_stream(self.device))
             j.chunk_base = j.stage_next
             j.chunk_len = lines_b.shape[0]
             j.stage_next += j.chunk_len
@@ -117,7 +141,8 @@ class StagedDeviceDecoder(batch_driver.BatchDecoder):
             j.Ls = lines_b.shape[1]
             j.W = lines_b.shape[2]
             if block and j.px_ready is not None:
-                j.px_ready.synchronize()
+                with self._wait():
+                    j.px_ready.synchronize()
         return True
 
     def run(self):
@@ -352,51 +377,62 @@ class DeviceBatchDecoder(StagedDeviceDecoder):
                  shift_limit=1, frames_per_round=16, use_kernel=None,
                  hbm_frames=256, *, device, graphs=True, **kw):
         from ..ops import stitch_native as _sn
-        self.device = torch.device(device)
-        if use_kernel is None:
-            use_kernel = self.device.type == "cuda"
-        # tpu-spec: steady pairs replay the round dispatch's device
-        # results; transition pairs (a handful per capture) use the
-        # bit-identical native tail.  Pure "tpu" (the device backend)
-        # when the C core is switched off.
-        super().__init__(jobs, lines_per_field=lines_per_field,
-                         hyst_limit=hyst_limit, shift_limit=shift_limit,
-                         frames_per_round=frames_per_round,
-                         seam_backend="tpu-spec" if _sn.available()
-                         else "tpu", device=self.device,
-                         use_kernel=use_kernel, graphs=graphs, **kw)
-        self.hyst_limit = hyst_limit
-        self.shift_limit = shift_limit
-        self._round_hbm_frames(frames_per_round, hbm_frames)
-        self.use_kernel = use_kernel
-        self.graphs = RoundGraphs(self.device) if graphs else None
-        self.tables = ds.RoundTables().to(self.device)
-        self._rows_cache = {}
-        self._zero_carry = (
-            torch.zeros((MDD, 8), dtype=torch.int32, device=self.device),
-            torch.zeros((MDD, 8), dtype=torch.bool, device=self.device))
-        for j in self.jobs:
-            self._init_job_staging(j)
-            Ls = j.Ls
-            j.prev_words = torch.zeros((Ls, 8), dtype=torch.int32,
-                                       device=self.device)
-            j.prev_ok8 = torch.zeros((Ls, 8), dtype=torch.bool,
-                                     device=self.device)
-            j.carry_dev = None
-            j.carry_key = None
-            j.pending = None
-            j.round_id = 0
-            j.round_chained = []   # per dispatched round: chained or not
-            j.next_sample = None
-            j.next_sample_host = None
-            if j.chunk_len:
-                # Pre-gather round 0's prescan rows now; the async
-                # copies complete while the other captures stage.
-                F0 = min(frames_per_round, j.chunk_len)
-                s0 = _gather_sample(j.px_dev[:F0], _prescan_idx(
-                    v2d.prescan_rows, Ls, self.device))
-                j.next_sample = (0, HostCopy(s0))
-        self._await_staging()
+        self.trace = Tracer()
+        with self.trace.span("construct"):
+            self.device = torch.device(device)
+            if use_kernel is None:
+                use_kernel = self.device.type == "cuda"
+            # tpu-spec: steady pairs replay the round dispatch's device
+            # results; transition pairs (a handful per capture) use the
+            # bit-identical native tail.  Pure "tpu" (the device backend)
+            # when the C core is switched off.
+            with self.trace.span("open"):
+                super().__init__(
+                    jobs, lines_per_field=lines_per_field,
+                    hyst_limit=hyst_limit, shift_limit=shift_limit,
+                    frames_per_round=frames_per_round,
+                    seam_backend="tpu-spec" if _sn.available() else "tpu",
+                    device=self.device, use_kernel=use_kernel,
+                    graphs=graphs, **kw)
+            with self.trace.span("setup"):
+                self.hyst_limit = hyst_limit
+                self.shift_limit = shift_limit
+                self._round_hbm_frames(frames_per_round, hbm_frames)
+                self.use_kernel = use_kernel
+                self.graphs = RoundGraphs(self.device) if graphs else None
+                self.tables = ds.RoundTables().to(self.device)
+                self._rows_cache = {}
+                self._zero_carry = (
+                    torch.zeros((MDD, 8), dtype=torch.int32,
+                                device=self.device),
+                    torch.zeros((MDD, 8), dtype=torch.bool,
+                                device=self.device))
+            for j in self.jobs:
+                self._init_job_staging(j)
+                with self.trace.span("setup"):
+                    self._init_job_round(j, frames_per_round)
+            self._await_staging()
+
+    def _init_job_round(self, j, frames_per_round):
+        Ls = j.Ls
+        j.prev_words = torch.zeros((Ls, 8), dtype=torch.int32,
+                                   device=self.device)
+        j.prev_ok8 = torch.zeros((Ls, 8), dtype=torch.bool,
+                                 device=self.device)
+        j.carry_dev = None
+        j.carry_key = None
+        j.pending = None
+        j.round_id = 0
+        j.round_chained = []   # per dispatched round: chained or not
+        j.next_sample = None
+        j.next_sample_host = None
+        if j.chunk_len:
+            # Pre-gather round 0's prescan rows now; the async copies
+            # complete while the other captures stage.
+            F0 = min(frames_per_round, j.chunk_len)
+            s0 = _gather_sample(j.px_dev[:F0], _prescan_idx(
+                v2d.prescan_rows, Ls, self.device))
+            j.next_sample = (0, HostCopy(s0))
 
     def _rows(self, F, lpf, n0, padI, padO, target, tff):
         key = (F, lpf, n0, padI, padO, target, tff)
@@ -466,9 +502,11 @@ class DeviceBatchDecoder(StagedDeviceDecoder):
                         sample = j.next_sample_host[1]
                     elif j.next_sample is not None \
                             and j.next_sample[0] == j.frames_read:
-                        sample = j.next_sample[1].numpy()
+                        with self._wait():
+                            sample = j.next_sample[1].numpy()
                     else:
-                        sample = _gather_sample(px, idx).cpu().numpy()
+                        with self._wait():
+                            sample = _gather_sample(px, idx).cpu().numpy()
                     sample = sample.reshape(F * len(idx), W)
                     prep = j.driver.prepare_frames(None, sample=sample,
                                                    shape=(F, Ls, W))
@@ -602,8 +640,8 @@ class DeviceBatchDecoder(StagedDeviceDecoder):
             else:
                 a = f * Ls
                 store = st.LineStore.from_decoded_spec(
-                    (lambda dev=wflat, a=a, b=a + Ls:
-                     dev[a:b].cpu().numpy()),
+                    functools.partial(_fetch_words, self.trace, wflat, a,
+                                      a + Ls),
                     crc_read[f], valid[f], cb[f], crcm[f],
                     np.full(Ls, j.frame_no), j.nums,
                     ref_level=np.full(Ls, int(prep["refs"][f])),
@@ -631,15 +669,18 @@ class DeviceBatchDecoder(StagedDeviceDecoder):
         j.pending = None
         with self._stage("materialize"):
             rows_ = p["rows"]
+            with self._wait():
+                out = p["out"].numpy()
             (crc_read, valid, dup, cb, crcm, packed1, samples_conv,
              res_counts, seam_stats) = ds.unpack_round(
-                p["out"].numpy(), p["F"], j.Ls, rows_.Bc)
+                out, p["F"], j.Ls, rows_.Bc)
             # Read the next round's prescan sample HERE: its copy was
             # requested a full cycle ago (right after this round's
             # outputs), so it is local by now.
             if j.next_sample is not None:
-                j.next_sample_host = (j.next_sample[0],
-                                      j.next_sample[1].numpy())
+                with self._wait():
+                    sample = j.next_sample[1].numpy()
+                j.next_sample_host = (j.next_sample[0], sample)
                 j.next_sample = None
         F, Ls = p["F"], j.Ls
         wflat = p["wflat"]   # resident [F*Ls, 8] i32, CB-rewritten
@@ -662,9 +703,10 @@ class DeviceBatchDecoder(StagedDeviceDecoder):
                 # words, and run the host finalize path (marker fallback
                 # + dup rebuild) exactly as the streaming driver would.
                 sel = torch.as_tensor(fb_frames, device=self.device)
-                px_host = p["px"].index_select(0, sel).cpu().numpy()
-                w_fb = wflat.reshape(F, Ls, 8).index_select(0, sel) \
-                    .cpu().numpy().astype(np.int64)
+                with self._wait():
+                    px_host = p["px"].index_select(0, sel).cpu().numpy()
+                    w_fb = wflat.reshape(F, Ls, 8).index_select(0, sel) \
+                        .cpu().numpy().astype(np.int64)
                 crc_fb = crc_read[fb_frames].astype(np.int64)
                 cb_fb = cb[fb_frames]
                 if cb_fb.any():
@@ -696,7 +738,9 @@ class DeviceBatchDecoder(StagedDeviceDecoder):
             w_pre = {}
             for a, b, arr in p.get("prefetch", ()):
                 # Copied at dispatch: this reads local data.
-                host = arr.numpy().astype(np.int64)
+                with self._wait():
+                    host = arr.numpy()
+                host = host.astype(np.int64)
                 for f in range(a, b):
                     w_pre[f] = host[(f - a) * Ls:(f - a + 1) * Ls]
             stores = self._build_stores_device(

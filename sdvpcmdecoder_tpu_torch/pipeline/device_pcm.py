@@ -34,6 +34,7 @@ import torch
 from ..ops import device_pcm as dp
 from ..ops.round_graph import RoundGraphs
 from ..utils.host import HostCopy, upload
+from ..utils.trace import Tracer
 from .device_driver import StagedDeviceDecoder, _gather_sample, _prescan_idx
 
 
@@ -75,25 +76,31 @@ class DevicePCMBatchDecoder(StagedDeviceDecoder):
                  graphs=True, **kw):
         if fmt not in ("pcm1", "pcm16x0", "pcm1630"):
             raise ValueError(f"DevicePCMBatchDecoder: unsupported {fmt!r}")
-        self.device = torch.device(device)
-        super().__init__(jobs, fmt=fmt, hyst_limit=hyst_limit,
-                         shift_limit=shift_limit,
-                         frames_per_round=frames_per_round,
-                         device=self.device, graphs=graphs, **kw)
-        self.dec_fmt = "pcm1" if fmt == "pcm1" else "pcm16x0"
-        self.hyst_limit = hyst_limit
-        self.shift_limit = shift_limit
-        self.graphs = RoundGraphs(self.device) if graphs else None
-        self.fetched_frames = 0   # frames copied back for refinement
-        self.fetch_copies = 0     # device->host copies that carried them
-        self._round_hbm_frames(frames_per_round, hbm_frames)
-        for j in self.jobs:
-            self._init_job_staging(j)
-            j.pending = None
-            j.next_sample = None
-            if j.chunk_len:
-                self._prefetch_sample(j, 0)
-        self._await_staging()
+        self.trace = Tracer()
+        with self.trace.span("construct"):
+            self.device = torch.device(device)
+            with self.trace.span("open"):
+                super().__init__(jobs, fmt=fmt, hyst_limit=hyst_limit,
+                                 shift_limit=shift_limit,
+                                 frames_per_round=frames_per_round,
+                                 device=self.device, graphs=graphs, **kw)
+            with self.trace.span("setup"):
+                self.dec_fmt = "pcm1" if fmt == "pcm1" else "pcm16x0"
+                self.hyst_limit = hyst_limit
+                self.shift_limit = shift_limit
+                self.graphs = RoundGraphs(self.device) if graphs else None
+                # Frames copied back for refinement, and the copies.
+                self.fetched_frames = 0
+                self.fetch_copies = 0
+                self._round_hbm_frames(frames_per_round, hbm_frames)
+            for j in self.jobs:
+                self._init_job_staging(j)
+                with self.trace.span("setup"):
+                    j.pending = None
+                    j.next_sample = None
+                    if j.chunk_len:
+                        self._prefetch_sample(j, 0)
+            self._await_staging()
 
     def _prescan_idx(self, j):
         return _prescan_idx(type(j.driver).prescan_rows, j.Ls, self.device)
@@ -121,10 +128,12 @@ class DevicePCMBatchDecoder(StagedDeviceDecoder):
             with self._stage("prescan"):
                 if j.next_sample is not None \
                         and j.next_sample[0] == j.frames_read:
-                    sample = j.next_sample[1].numpy()
+                    with self._wait():
+                        sample = j.next_sample[1].numpy()
                 else:
-                    sample = _gather_sample(
-                        px, self._prescan_idx(j)).cpu().numpy()
+                    with self._wait():
+                        sample = _gather_sample(
+                            px, self._prescan_idx(j)).cpu().numpy()
                 sample = sample.reshape(F * sample.shape[1], W)
                 prep = j.driver.prepare_frames(None, sample=sample,
                                                shape=(F, Ls, W))
@@ -154,8 +163,10 @@ class DevicePCMBatchDecoder(StagedDeviceDecoder):
         F, Ls = p["F"], j.Ls
         prep = p["prep"]
         with self._stage("materialize"):
+            with self._wait():
+                out = p["out"].numpy()
             words, crc, valid, ctrl = dp.unpack_round(
-                p["out"].numpy(), F, Ls, self.dec_fmt)
+                out, F, Ls, self.dec_fmt)
         with self._stage("finalize"):
             # The frames finalize_decoded refines (usable, some line
             # failed): their pixels come back in one gather and one copy.
@@ -165,7 +176,8 @@ class DevicePCMBatchDecoder(StagedDeviceDecoder):
             rows = {}
             if fetch:
                 sel = torch.as_tensor(fetch, device=self.device)
-                host = p["px"].index_select(0, sel).cpu().numpy()
+                with self._wait():
+                    host = p["px"].index_select(0, sel).cpu().numpy()
                 rows = dict(zip(fetch, host))
                 self.fetched_frames += len(fetch)
                 self.fetch_copies += 1
