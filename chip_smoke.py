@@ -566,6 +566,36 @@ def driver_run(jobs, tmp, tag, use_kernel, **kw):
             wall)
 
 
+def staged_chunks_match(cap, device, hbm_frames, **kw):
+    """Every staging chunk of a DeviceBatchDecoder over `cap` on `device`
+    against the host split: each chunk's px_dev, split into fields on the
+    device, must equal ingest.split_fields_batch of the same frames moved
+    there, byte for byte, and its nums the host's line numbers, dtypes
+    included. Returns (chunks, bytes compared)."""
+    from sdvpcmdecoder_tpu_torch.pipeline import device_driver as dd
+    from sdvpcmdecoder_tpu_torch.pipeline import ingest
+    dec = dd.DeviceBatchDecoder([(cap, cap + ".wav")], device=device,
+                                hbm_frames=hbm_frames, **kw)
+    j = dec.jobs[0]
+    chunks = nbytes = 0
+    with ingest.open_capture(cap) as rd:
+        while True:
+            want, nums = ingest.split_fields_batch(
+                rd.read_frames(j.chunk_base, dec.hbm_frames))
+            want = torch.from_numpy(want).to(j.px_dev.device)
+            check(j.px_dev.dtype == want.dtype
+                  and torch.equal(j.px_dev, want)
+                  and j.nums.dtype == nums.dtype
+                  and np.array_equal(j.nums, nums),
+                  f"staging {cap}: chunk at frame {j.chunk_base} "
+                  f"({tuple(j.px_dev.shape)} on {j.px_dev.device}) is not "
+                  f"the host split {tuple(want.shape)}")
+            chunks += 1
+            nbytes += want.numel()
+            if not dec._stage_chunk(j):
+                return chunks, nbytes
+
+
 def driver_device_busy(jobs, tmp, **kw):
     """(device busy ms, CUDA kernel and copy events, wall ms) of one
     kernel-path driver run under torch.profiler: the sum of the CUDA rows'
@@ -2377,7 +2407,7 @@ def main():
     from sdvpcmdecoder_tpu_torch.ops import deinterleave as di
     from sdvpcmdecoder_tpu_torch.ops import device_stitch as ds
     from sdvpcmdecoder_tpu_torch.ops import fused_binarize as fb
-    from sdvpcmdecoder_tpu_torch.pipeline import audio, decoder, wav
+    from sdvpcmdecoder_tpu_torch.pipeline import audio, decoder, ingest, wav
     from sdvpcmdecoder_tpu_torch.pipeline import device_driver as dd
     from sdvpcmdecoder_tpu_torch.synth import encoder as enc
 
@@ -2779,24 +2809,49 @@ def main():
           f"{time.perf_counter() - t0:.2f} s")
 
     # -- phase 11: golden WAVs, byte-identical to the JAX package's --------
+    # The chip-resident driver splits its chunks into fields on the card:
+    # ingest.split_fields_batch raises while these runs stage.
     launches_golden = 0
-    for name, cap in golden.items():
-        lpf = 294 if name == "pal" else 245
-        fb.stc007_fused_decode_frames.launches = 0
-        wavs, dec, _, _ = driver_run([cap], tmp, f"golden_{name}", True,
-                                     lines_per_field=lpf, hyst_limit=2,
-                                     shift_limit=1, frames_per_round=5)
-        n = fb.stc007_fused_decode_frames.launches
-        launches_golden += n
-        j = dec.jobs[0]
-        digest = hashlib.sha256(wavs[0]).hexdigest()
-        check(digest == GOLDEN_SHA256[name],
-              f"golden {name}: WAV sha256 {digest} is not the JAX "
-              f"package's {GOLDEN_SHA256[name]}")
-        check(n == len(j.round_chained) + j.driver.fallback_batches,
-              f"golden {name}: K1 launched {n} times")
-        print(f"[golden] {name}: WAV sha256 {digest} equals the JAX "
-              f"package's; rounds {len(j.round_chained)}, K1 launches {n}")
+    split_fields_batch = ingest.split_fields_batch
+
+    def host_split_refused(*a, **k):
+        raise AssertionError("the driver called ingest.split_fields_batch")
+
+    ingest.split_fields_batch = host_split_refused
+    try:
+        for name, cap in golden.items():
+            lpf = 294 if name == "pal" else 245
+            fb.stc007_fused_decode_frames.launches = 0
+            wavs, dec, _, _ = driver_run([cap], tmp, f"golden_{name}", True,
+                                         lines_per_field=lpf, hyst_limit=2,
+                                         shift_limit=1, frames_per_round=5)
+            n = fb.stc007_fused_decode_frames.launches
+            launches_golden += n
+            j = dec.jobs[0]
+            digest = hashlib.sha256(wavs[0]).hexdigest()
+            check(digest == GOLDEN_SHA256[name],
+                  f"golden {name}: WAV sha256 {digest} is not the JAX "
+                  f"package's {GOLDEN_SHA256[name]}")
+            check(n == len(j.round_chained) + j.driver.fallback_batches,
+                  f"golden {name}: K1 launched {n} times")
+            print(f"[golden] {name}: WAV sha256 {digest} equals the JAX "
+                  f"package's; rounds {len(j.round_chained)}, K1 launches {n}"
+                  f"; ingest.split_fields_batch never called")
+    finally:
+        ingest.split_fields_batch = split_fields_batch
+
+    # -- phase 11b: each staged chunk split into fields on the card --------
+    t0 = time.perf_counter()
+    for cap in big:
+        n_chunks, n_bytes = staged_chunks_match(
+            cap, DEVICE, DRIVER_HBM, lines_per_field=294,
+            frames_per_round=ROUND_FRAMES)
+        print(f"[stage-split] {os.path.basename(cap)}: {n_chunks} chunks of "
+              f"up to {DRIVER_HBM} x {PAL_LINES} x {WIDTH} split on the "
+              f"card equal ingest.split_fields_batch moved there, byte for "
+              f"byte ({n_bytes} B), nums equal")
+    print(f"[stage-split] checked in {time.perf_counter() - t0:.2f} s on "
+          f"{card}")
 
     # -- phase 12: the driver at full width, timed -------------------------
     dkw = dict(lines_per_field=294, hyst_limit=NORMAL[0],

@@ -3,8 +3,8 @@ fused round decodes a whole round of frames, samples/stats come back in KB.
 
 Port of sdvpcmdecoder_tpu/pipeline/device_driver.py:
 
-  stage:   each capture's frames are split to fields and uploaded to the
-           explicit `device` ONCE per bounded chunk.
+  stage:   each capture's frames are uploaded to the explicit `device`
+           ONCE per bounded chunk and split to fields there.
   round:   ops.device_stitch.steady_round_packed (through `run_round`) =
            binarize (the CUDA kernel K1 on a GPU) + duplicate detection +
            DUAL-resolution eval of every speculated seam/res/conv queue
@@ -69,6 +69,29 @@ def _prescan_idx(prescan_rows, L, device):
     return torch.as_tensor(prescan_rows(L), device=device)
 
 
+@functools.lru_cache(maxsize=None)
+def _field_rows(H, device):
+    """ingest.field_perm(H): the rows on `device` (uploaded once, as
+    _prescan_idx) and the line numbers, read-only as every chunk of
+    every job shares them."""
+    perm, nums = ingest.field_perm(H)
+    nums.flags.writeable = False
+    return torch.as_tensor(perm, device=device), nums
+
+
+def _split_fields(raw):
+    """ingest.split_fields_batch on the device: raw frames [F, H, W]
+    uint8 -> (lines [F, H, W'] on raw's device, line numbers [H]), the
+    same bytes in one gather.  A narrow frame's pixels repeat along the
+    width (W' = 2W) through a broadcast view, so the upload carries
+    half the bytes."""
+    F, H, W = raw.shape
+    rep = 2 if W < ingest.MIN_WIDTH_FOR_SINGLE else 1
+    rows, nums = _field_rows(H, raw.device)
+    lines = raw.unsqueeze(3).expand(F, H, W, rep).index_select(1, rows)
+    return lines.view(F, H, W * rep), nums
+
+
 class StagedDeviceDecoder(batch_driver.BatchDecoder):
     """Shared skeleton of the chip-resident drivers (STC-007, PCM-1/16x0):
     bounded-chunk device staging, the capture round-robin visit loop
@@ -115,31 +138,35 @@ class StagedDeviceDecoder(batch_driver.BatchDecoder):
                     j.px_ready.synchronize()
 
     def _stage_chunk(self, j, block=True):
-        """Stage the next bounded chunk of frames on the device.  Returns
-        False at EOF (j.exhausted set).  The upload, from pageable
-        memory, waits for the rounds queued on the device before it."""
+        """Stage the next bounded chunk of frames on the device: upload
+        the frames as read, then split them into fields there
+        (`_split_fields`).  Returns False at EOF (j.exhausted set).  The
+        upload, from pageable memory, waits for the rounds queued on the
+        device before it."""
         with self._stage("stage_hbm"):
             with self.trace.span("stage_read"):
                 batch = j.reader.read_frames(j.stage_next, self.hbm_frames)
             if batch.shape[0] == 0:
                 j.exhausted = True
                 return False
-            with self.trace.span("stage_split"):
-                lines_b, nums = ingest.split_fields_batch(batch)
+            # Every round of the previous chunk is queued: drop it, so the
+            # raw upload can take its block (the allocator orders reuse
+            # on the stream) and staging needs no more device memory
+            # than a host split did.
+            j.px_dev = None
             with self.trace.span("stage_upload"):
-                j.px_dev = torch.from_numpy(lines_b).to(self.device,
-                                                        non_blocking=True)
+                raw = torch.from_numpy(batch).to(self.device,
+                                                 non_blocking=True)
+            with self.trace.span("stage_split"):
+                j.px_dev, j.nums = _split_fields(raw)
                 j.px_ready = None
                 if self.device.type == "cuda":
                     j.px_ready = torch.cuda.Event()
                     j.px_ready.record(
                         torch.cuda.current_stream(self.device))
             j.chunk_base = j.stage_next
-            j.chunk_len = lines_b.shape[0]
+            j.chunk_len, j.Ls, j.W = j.px_dev.shape
             j.stage_next += j.chunk_len
-            j.nums = nums
-            j.Ls = lines_b.shape[1]
-            j.W = lines_b.shape[2]
             if block and j.px_ready is not None:
                 with self._wait():
                     j.px_ready.synchronize()

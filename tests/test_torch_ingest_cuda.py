@@ -1,6 +1,7 @@
 """This slice's card paths against their plain or CPU versions, on an
 NVIDIA GPU: decode_stream's K1 route, the mesh step, concurrent shards on
-one card, the device histogram and a container through the CLI. Marked
+one card, the device histogram, a container through the CLI and the
+chip-resident driver's staging split into fields on the card. Marked
 `cuda`: every test skips where torch.cuda.is_available() is false. On a
 GPU machine (no JAX there) run them with
 
@@ -17,7 +18,7 @@ from sdvpcmdecoder_tpu_torch.ops import agc
 from sdvpcmdecoder_tpu_torch.ops import fused_binarize as fb
 from sdvpcmdecoder_tpu_torch.parallel import mesh as pm
 from sdvpcmdecoder_tpu_torch.parallel.multichip import ShardedBatchDecoder
-from sdvpcmdecoder_tpu_torch.pipeline import decoder
+from sdvpcmdecoder_tpu_torch.pipeline import decoder, ingest
 from sdvpcmdecoder_tpu_torch.synth import encoder as enc
 
 pytestmark = pytest.mark.cuda
@@ -111,3 +112,22 @@ def test_hfyu_avi_through_the_cli_on_the_card(cuda, tmp_path):
     assert fb.stc007_fused_decode_frames.launches > before
     assert hashlib.sha256(out.read_bytes()).hexdigest() == \
         chip_smoke.GOLDEN_CLI_SHA256["pal"]
+
+
+@pytest.mark.parametrize("capture", ["full_width", "narrow"])
+def test_chunks_split_on_the_card_equal_the_host_split(cuda, tmp_path,
+                                                       capture):
+    """DeviceBatchDecoder's staging: each chunk uploaded as read and split
+    into fields on the card is ingest.split_fields_batch's array moved
+    there, byte for byte; the 720-px capture is doubled on the card."""
+    path = str(tmp_path / f"{capture}.y4m")
+    if capture == "full_width":
+        chip_smoke.write_capture(path, 10, 294, seed=9)
+        lpf = 294
+    else:
+        lpf = chip_smoke.WIDE["lpf"]
+        ingest.write_y4m(path, chip_smoke.wide_frames(10, lpf, seed=9))
+    chunks, nbytes = chip_smoke.staged_chunks_match(
+        path, cuda, 4, lines_per_field=lpf, frames_per_round=4)
+    width = chip_smoke.WIDTH if capture == "full_width" else 2 * 720
+    assert chunks == 3 and nbytes == 10 * 2 * lpf * width
