@@ -21,7 +21,9 @@ utils.trace.Tracer (`trace`).  `_stage` spans are the stages a subclass
 can hook (bench_port/harness.instrumented records them); the finer spans
 inside them (the stitch proper, a round's dispatch, the chip-resident
 drivers' staging parts, constructor parts and waits on the card) go to
-`trace.span` directly and are summed in `stage_t` alone.
+`trace.span` directly and are summed in `stage_t` alone.  PCM jobs' frame
+drivers and stitchers add their spans and counts (`count_...`) to the
+same tracer.
 
 Port of sdvpcmdecoder_tpu/pipeline/batch_driver.py: STC-007 (M2
 through mode_m2), PCM-1, PCM-16x0 (SI, EI as "pcm1630") and fmt="auto".
@@ -200,8 +202,8 @@ class BatchDecoder:
                     "pcm1", shift_limit=shift_limit,
                     hyst_limit=hyst_limit, backend=line_backend,
                     refine=refine, device=device,
-                    graphs=graphs)
-                j.stitcher = sp1.PCM1Stitcher()
+                    graphs=graphs, trace=self.trace)
+                j.stitcher = sp1.PCM1Stitcher(trace=self.trace)
             elif fmt in ("pcm16x0", "pcm1630"):
                 from . import stitcher_pcm16x0 as sp16
                 from . import v2d_other
@@ -209,11 +211,11 @@ class BatchDecoder:
                     "pcm16x0", shift_limit=shift_limit,
                     hyst_limit=hyst_limit, backend=line_backend,
                     refine=refine, device=device,
-                    graphs=graphs)
+                    graphs=graphs, trace=self.trace)
                 j.stitcher = sp16.PCM16X0Stitcher(
                     fmt=sp16.FORMAT_EI if fmt == "pcm1630"
                     else sp16.FORMAT_SI,
-                    auto_fmt=fmt == "pcm16x0")
+                    auto_fmt=fmt == "pcm16x0", trace=self.trace)
             else:
                 raise ValueError(f"unknown fmt {fmt!r}")
             j.audio = ap.AudioProcessor(mask_mode=mask_mode)

@@ -22,6 +22,14 @@ failed lines are gathered in one index_select and one copy per round
 (as the STC-007 driver's _complete does); `fetched_frames` and
 `fetch_copies` count them.
 
+Spans of the decoder's tracer (`trace`, besides the shared stages):
+`pcm_agc` (the frame driver's AGC and coordinate search, inside
+`prescan`), `pcm_round` (the round's parameter packing and its launch,
+inside `dispatch`) and `pcm_refine` (the fetch of the frames to refine
+here, and the frame driver's refinement, Bit Picker and CRC re-check,
+inside `finalize`); counters `count_pcm_refined_frames` (the frame
+driver) and `count_pcm_native_frames` (the stitchers).
+
 Reference scope: the V2D loop feeding the per-format stitcher threads
 (videotodigital.cpp:698 routing, pcm1datastitcher.cpp:1578,
 pcm16x0datastitcher.cpp:5652 doFrameReassemble).
@@ -135,23 +143,26 @@ class DevicePCMBatchDecoder(StagedDeviceDecoder):
                         sample = _gather_sample(
                             px, self._prescan_idx(j)).cpu().numpy()
                 sample = sample.reshape(F * sample.shape[1], W)
-                prep = j.driver.prepare_frames(None, sample=sample,
-                                               shape=(F, Ls, W))
-            layout, n_par = dp.round_param_layout(F)
-            params = np.empty(n_par, np.int32)
+                with self.trace.span("pcm_agc"):
+                    prep = j.driver.prepare_frames(None, sample=sample,
+                                                   shape=(F, Ls, W))
+            with self.trace.span("pcm_round"):
+                layout, n_par = dp.round_param_layout(F)
+                params = np.empty(n_par, np.int32)
 
-            def put(key, arr):
-                a = np.asarray(arr).ravel()
-                params[layout[key]:layout[key] + a.size] = a
+                def put(key, arr):
+                    a = np.asarray(arr).ravel()
+                    params[layout[key]:layout[key] + a.size] = a
 
-            put("coords", prep["coords"])
-            put("refs", np.maximum(prep["refs"], 1))
-            put("blacks", np.clip(prep["blacks"], 0, 254))
-            put("whites", np.clip(prep["whites"], 1, 255))
-            put("usable", prep["usable"])
-            out = run_round(px, params, fmt=self.dec_fmt,
-                            shift_limit=self.shift_limit,
-                            hyst_limit=self.hyst_limit, graphs=self.graphs)
+                put("coords", prep["coords"])
+                put("refs", np.maximum(prep["refs"], 1))
+                put("blacks", np.clip(prep["blacks"], 0, 254))
+                put("whites", np.clip(prep["whites"], 1, 255))
+                put("usable", prep["usable"])
+                out = run_round(px, params, fmt=self.dec_fmt,
+                                shift_limit=self.shift_limit,
+                                hyst_limit=self.hyst_limit,
+                                graphs=self.graphs)
             # Copied before any other round replays.
             j.pending = dict(F=F, px=px, prep=prep, out=HostCopy(out))
             j.frames_read += F
@@ -175,9 +186,10 @@ class DevicePCMBatchDecoder(StagedDeviceDecoder):
                      and not valid[f].all()]
             rows = {}
             if fetch:
-                sel = torch.as_tensor(fetch, device=self.device)
-                with self._wait():
-                    host = p["px"].index_select(0, sel).cpu().numpy()
+                with self.trace.span("pcm_refine"):
+                    sel = torch.as_tensor(fetch, device=self.device)
+                    with self._wait():
+                        host = p["px"].index_select(0, sel).cpu().numpy()
                 rows = dict(zip(fetch, host))
                 self.fetched_frames += len(fetch)
                 self.fetch_copies += 1

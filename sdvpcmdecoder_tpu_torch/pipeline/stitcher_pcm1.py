@@ -6,7 +6,9 @@ trimming, line -> 3 sublines split, per-field deinterleave with the
 zig-zag word-pair interleave, emphasis from header lines.
 
 Port of sdvpcmdecoder_tpu/pipeline/stitcher_pcm1.py, line for line (numpy on the
-host; the native calls go to the port's ops/stitch_native).
+host; the native calls go to the port's ops/stitch_native).  `trace` (a
+utils.trace.Tracer; a BatchDecoder passes its own) counts the frames
+its native steady call took (`count_pcm_native_frames`).
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ import numpy as np
 
 from ..formats import pcm1
 from ..ops import pcm1_deint as di1
+from ..utils.trace import Tracer
 from .stitcher_stc007 import (SRV_NO, SRV_NEW_FILE, SRV_END_FILE,
                               SRV_FILLER, ORDER_TFF, ORDER_BFF,
                               SAMPLE_RATE_44100, SampleChunk)
@@ -150,7 +153,8 @@ class PCM1Stitcher:
     """Single-frame PCM-1 reassembler (doFrameReassemble equivalent)."""
 
     def __init__(self, field_order=ORDER_TFF, auto_offset=True,
-                 odd_offset=0, even_offset=0):
+                 odd_offset=0, even_offset=0, trace=None):
+        self.trace = trace if trace is not None else Tracer()
         self.preset_field_order = field_order
         self.auto_offset = auto_offset
         self.preset_odd_offset = odd_offset
@@ -329,6 +333,7 @@ class PCM1Stitcher:
             self.preset_odd_offset, self.preset_even_offset)
         if rc != 0:
             return False
+        self.trace.count("count_pcm_native_frames")
         self.file_start = False
         self.file_end = False
         self.header_present = False

@@ -20,7 +20,9 @@ reference's redistribution exists for): tests/test_ei_crop.py
 test_ei_asymmetric_field_crops recovers bit-exact alignment.
 
 Port of sdvpcmdecoder_tpu/pipeline/stitcher_pcm16x0.py, line for line (numpy on the
-host; the native calls go to the port's ops/stitch_native).
+host; the native calls go to the port's ops/stitch_native).  `trace` (a
+utils.trace.Tracer; a BatchDecoder passes its own) counts the frames
+its native steady call took (`count_pcm_native_frames`).
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ import numpy as np
 
 from ..formats import pcm16x0
 from ..ops import pcm16x0_deint as di16
+from ..utils.trace import Tracer
 from .stitcher_stc007 import (SRV_NO, SRV_NEW_FILE, SRV_END_FILE,
                               SRV_FILLER, ORDER_UNK, ORDER_TFF, ORDER_BFF,
                               SAMPLE_RATE_44100, SAMPLE_RATE_44056,
@@ -218,7 +221,9 @@ class PCM16X0Stitcher:
     """Single-frame PCM-16x0 reassembler with SI padding auto-detection."""
 
     def __init__(self, field_order=ORDER_TFF, fmt=FORMAT_SI, en_p=True,
-                 mask_seams=True, preset_sample_rate=0, auto_fmt=False):
+                 mask_seams=True, preset_sample_rate=0, auto_fmt=False,
+                 trace=None):
+        self.trace = trace if trace is not None else Tracer()
         self.preset_field_order = field_order
         self.fmt = fmt
         self.en_p = en_p
@@ -597,6 +602,7 @@ class PCM16X0Stitcher:
             buf, fr.frame_number, fr.field_order == ORDER_TFF, self.en_p)
         if rc != 0:
             return False
+        self.trace.count("count_pcm_native_frames")
         self.file_start = False
         self.file_end = False
         # _find_trim replay

@@ -26,7 +26,12 @@ pcm16x0_frame_decode); with `graphs` (the default) the port replays it
 as a CUDA graph from the thread's ops/round_graph.RoundGraphs
 (thread_graphs; the CPU's stand-in on the CPU), keyed by the format,
 the trial limits and the input shapes; graphs=False runs its ops
-eagerly.
+eagerly.  One departure in the coordinate search: a first hit that no
+other sample line confirms is not kept where the lines swept from their
+own edges find hits (_unseeded_hits).  `trace` is the utils.trace.Tracer its post-decode work adds to
+(a BatchDecoder passes its own): span `pcm_refine` (per-line refinement,
+the Bit Picker and the CRC re-check of each frame) and counter
+`count_pcm_refined_frames` (frames whose failed lines were refined).
 """
 from __future__ import annotations
 
@@ -38,6 +43,7 @@ import torch
 from ..ops import agc, line_decode_np as ld
 from ..ops.round_graph import thread_graphs
 from ..utils.host import HostCopy, upload
+from ..utils.trace import Tracer
 from .v2d import _imed
 
 COORD_CHECK_LINES = 4      # videotodigital.h:98-105
@@ -70,9 +76,10 @@ class PCMFrameDriver:
 
     def __init__(self, fmt: str, shift_limit=2, hyst_limit=0, refine=True,
                  preset: agc.BinPreset | None = None, backend="auto",
-                 device="cuda", graphs=True):
+                 device="cuda", graphs=True, trace=None):
         assert fmt in ("pcm1", "pcm16x0")
         self.fmt = fmt
+        self.trace = trace if trace is not None else Tracer()
         self.shift_limit = shift_limit
         self.hyst_limit = hyst_limit   # binarizer.h:235-241 depth sweep
         self.refine = refine            # normal/insane per-line sweep
@@ -173,6 +180,7 @@ class PCMFrameDriver:
             hist = self._hist_coords()
             hits = []
             passes = (narrow, None) if narrow is not None else (None,)
+            seeded_from = None
             for retry_ofs in passes:
                 for k in range(n_chk):
                     sw = ld.search_coordinates(
@@ -186,8 +194,13 @@ class PCMFrameDriver:
                             # Seed further sample lines with the first
                             # hit so their sweeps stay narrow.
                             hist = hits[0]
+                            seeded_from = k
                 if hits or retry_ofs is None:
                     break
+            if (seeded_from is not None and len(hits) == 1
+                    and seeded_from < n_chk - 1):
+                hits = self._unseeded_hits(sample[f], seeded_from, ref,
+                                           black, white, W) or hits
             if hits:
                 hs = np.array(hits)
                 c = (_imed(hs[:, 0]), _imed(hs[:, 1]))
@@ -202,6 +215,27 @@ class PCMFrameDriver:
             usable[f] = True
         return dict(coords=coords, refs=refs, blacks=blacks,
                     whites=whites, usable=usable)
+
+    def _unseeded_hits(self, lines, first, ref, black, white, W):
+        """The hits of sample lines `first + 1`.. swept from their own
+        edges, as a first line is.
+
+        A departure from the JAX package: with no history, the first hit
+        seeds the other sample lines' sweeps, and where none of them
+        confirms it, it may be a CRC collision (a line whose last bits are
+        0 puts its right edge out of the sweep's reach, so only a false
+        match is left). The JAX package keeps such a hit, and every later
+        sweep is seeded from the history it starts: the coordinates stay
+        wrong for the whole capture. Here the lines are swept again
+        unseeded, and their hits, if any, take the lone hit's place."""
+        hits = []
+        for k in range(first + 1, len(lines)):
+            sw = ld.search_coordinates(
+                lines[k], ref, black, white, W, fmt=self.fmt, history=None,
+                preset=self.preset, bin_mode_shifts=self.shift_limit)
+            if sw is not None:
+                hits.append((sw["start"], sw["stop"]))
+        return hits
 
     # -- decode -----------------------------------------------------------
     def _decode_batch(self, pixels, prep):
@@ -300,24 +334,26 @@ class PCMFrameDriver:
                 cl = crc[f].reshape(L * 3).copy()
                 vl = valid[f].copy()         # [L, 3] for refine
                 cb = ctrl[f].copy()
-            if self.refine and not np.asarray(valid[f]).all():
-                rows = px_fetch(f)
-                fixed = ld.refine_failed_lines(
-                    rows, valid[f], cds, ref, black, white, self.fmt,
-                    shift_limit=self.shift_limit,
-                    hyst_limit=self.hyst_limit)
-                if self.fmt == "pcm1":
-                    for li, (fw, fc) in fixed.items():
-                        wl[li] = fw
-                        cl[li] = fc
-                else:
-                    for (li, part), (fw, fc) in fixed.items():
-                        wl[3 * li + part] = fw
-                        cl[3 * li + part] = fc
-            if self.fmt == "pcm16x0":
-                vl = vl.reshape(L * 3)
-            pl, pr = self._pick_edge_bits(wl, cl, cds, W)
-            vl = vl | self._crc_ok(wl, cl)  # refined/picked lines count
+            with self.trace.span("pcm_refine"):
+                if self.refine and not np.asarray(valid[f]).all():
+                    self.trace.count("count_pcm_refined_frames")
+                    rows = px_fetch(f)
+                    fixed = ld.refine_failed_lines(
+                        rows, valid[f], cds, ref, black, white, self.fmt,
+                        shift_limit=self.shift_limit,
+                        hyst_limit=self.hyst_limit)
+                    if self.fmt == "pcm1":
+                        for li, (fw, fc) in fixed.items():
+                            wl[li] = fw
+                            cl[li] = fc
+                    else:
+                        for (li, part), (fw, fc) in fixed.items():
+                            wl[3 * li + part] = fw
+                            cl[3 * li + part] = fc
+                if self.fmt == "pcm16x0":
+                    vl = vl.reshape(L * 3)
+                pl, pr = self._pick_edge_bits(wl, cl, cds, W)
+                vl = vl | self._crc_ok(wl, cl)  # refined/picked lines count
             out.append(OtherFrameResult(wl, cl, vl, cb, ref, cds,
                                         picked_left=pl, picked_right=pr))
         return out
