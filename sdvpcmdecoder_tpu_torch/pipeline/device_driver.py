@@ -33,6 +33,7 @@ Reference scope: the full doFrameReassemble chain
 from __future__ import annotations
 
 import functools
+import inspect
 from typing import NamedTuple
 
 import numpy as np
@@ -41,7 +42,7 @@ import torch
 from ..formats import stc007
 from ..ops import device_stitch as ds
 from ..ops.round_graph import RoundGraphs
-from ..utils.host import HostCopy, host_call, upload
+from ..utils.host import HostCopy, StagingBuffer, host_call, upload
 from ..utils.trace import Tracer
 from . import batch_driver, ingest, v2d
 from . import stitcher_stc007 as st
@@ -126,7 +127,26 @@ class StagedDeviceDecoder(batch_driver.BatchDecoder):
         j.px_ready = None
         j.nums = None
         j.Ls = j.W = 0
+        self._take_stage_buffer(j)
         self._stage_chunk(j, block=False)
+
+    def _take_stage_buffer(self, j):
+        """The job's staging buffer (utils/host.StagingBuffer): one chunk
+        of frames, or what is left of a shorter capture. It goes when the
+        job is done, and its pinned block to the next buffer."""
+        rd = j.reader
+        n = getattr(rd, "n_frames", None)
+        frames = self.hbm_frames if n is None \
+            else min(self.hbm_frames, n - j.chunk_base)
+        j.stage_shape = (frames, rd.height, rd.width)
+        j.read_into = "out" in inspect.signature(rd.read_frames).parameters
+        j.stage_buf = None
+        if frames <= 0:
+            return
+        j.stage_buf = StagingBuffer(frames * rd.height * rd.width,
+                                    self.device)
+        if j.stage_buf.new:
+            self.trace.count("count_stage_pin_allocs")
 
     def _await_staging(self):
         """Staging is part of setup, not decode: wait for the uploads so
@@ -137,15 +157,34 @@ class StagedDeviceDecoder(batch_driver.BatchDecoder):
                 if j.px_ready is not None:
                     j.px_ready.synchronize()
 
+    def _read_chunk(self, j):
+        """The next chunk's frames, read into the job's staging buffer."""
+        if j.stage_buf is None:    # the job started with no frame to read
+            return np.zeros((0,) + j.stage_shape[1:], np.uint8)
+        out = j.stage_buf.array(j.stage_shape)
+        if j.read_into:
+            return j.reader.read_frames(j.stage_next, len(out), out=out)
+        batch = j.reader.read_frames(j.stage_next, len(out))
+        out = out[:len(batch)]
+        np.copyto(out, batch)
+        return out
+
     def _stage_chunk(self, j, block=True):
-        """Stage the next bounded chunk of frames on the device: upload
-        the frames as read, then split them into fields there
-        (`_split_fields`).  Returns False at EOF (j.exhausted set).  The
-        upload, from pageable memory, waits for the rounds queued on the
-        device before it."""
+        """Stage the next bounded chunk of frames on the device: read
+        them into the job's staging buffer, upload them, then split them
+        into fields there (`_split_fields`).  Returns False at EOF
+        (j.exhausted set).  On CUDA the buffer is pinned: the upload
+        does not wait for the rounds queued before it, and the read
+        waits for the buffer's last upload, a chunk back.  With `block`
+        the host then waits for the split, and so for every round queued
+        before it (a `wait` span)."""
+        buf = j.stage_buf
         with self._stage("stage_hbm"):
+            if buf is not None and buf.event is not None:
+                with self._wait():
+                    buf.wait()
             with self.trace.span("stage_read"):
-                batch = j.reader.read_frames(j.stage_next, self.hbm_frames)
+                batch = self._read_chunk(j)
             if batch.shape[0] == 0:
                 j.exhausted = True
                 return False
@@ -155,8 +194,10 @@ class StagedDeviceDecoder(batch_driver.BatchDecoder):
             # than a host split did.
             j.px_dev = None
             with self.trace.span("stage_upload"):
-                raw = torch.from_numpy(batch).to(self.device,
-                                                 non_blocking=True)
+                raw = buf.upload(batch.shape)
+            self.trace.count("count_stage_chunks")
+            if buf.pinned:
+                self.trace.count("count_stage_pinned_chunks")
             with self.trace.span("stage_split"):
                 j.px_dev, j.nums = _split_fields(raw)
                 j.px_ready = None
@@ -193,6 +234,7 @@ class StagedDeviceDecoder(batch_driver.BatchDecoder):
             if j.pending is None:
                 self._stitch_and_write(j, [], finish=True)
                 self._drain_final(j)
+                j.stage_buf = None
                 j.done = True
             return
         self._dispatch(j)

@@ -177,17 +177,22 @@ class VideoReader:
             self._stride = w * h
             self.n_frames = len(self._mm) // self._stride
 
-    def read_frames(self, first, count):
+    def read_frames(self, first, count, out=None):
         """-> uint8 [count, H, W] luma batch (timeline view: dropped
-        frames read as all-black)."""
+        frames read as all-black). With `out`, a C-contiguous uint8
+        [>= count, H, W] array, the frames are read into it and its
+        first frames are returned (a reused buffer: every frame returned
+        is written, the dropped ones black)."""
         if self._timeline_map is None:
-            return self._read_stored(first, count)
+            return self._read_stored(first, count, out)
         count = max(0, min(count, self.n_frames - first))
+        out = np.zeros((count, self.height, self.width), np.uint8) \
+            if out is None else self._check_out(out, count)
         if count == 0:
-            return np.zeros((0, self.height, self.width), np.uint8)
-        out = np.zeros((count, self.height, self.width), np.uint8)
+            return out
         stored = self._timeline_map[first:first + count]
         present = stored >= 0
+        out[~present] = 0
         # contiguous runs of present frames read in one go
         k = 0
         while k < count:
@@ -198,7 +203,7 @@ class VideoReader:
             while j + 1 < count and present[j + 1] \
                     and stored[j + 1] == stored[j] + 1:
                 j += 1
-            out[k:j + 1] = self._read_stored(int(stored[k]), j - k + 1)
+            self._read_stored(int(stored[k]), j - k + 1, out[k:j + 1])
             k = j + 1
         return out
 
@@ -228,23 +233,37 @@ class VideoReader:
             base[off:], shape=(count, self.height, self.width),
             strides=(self._stride, self.width, 1), writeable=False)
 
-    def _read_stored(self, first, count):
+    def _check_out(self, out, count):
+        """out[:count], after the checks that passing its pointer to
+        the native loader needs."""
+        if out.dtype != np.uint8 or not out.flags.c_contiguous \
+                or not out.flags.writeable \
+                or out.shape[1:] != (self.height, self.width) \
+                or out.shape[0] < count:
+            raise ValueError(
+                f"out: want a writable C-contiguous uint8 array of at least "
+                f"[{count}, {self.height}, {self.width}], got "
+                f"{out.dtype} {out.shape}")
+        return out[:count]
+
+    def _read_stored(self, first, count, out=None):
         count = max(0, min(count, self._stored_frames - first))
+        out = np.empty((count, self.height, self.width), np.uint8) \
+            if out is None else self._check_out(out, count)
         if count == 0:
-            return np.zeros((0, self.height, self.width), np.uint8)
+            return out
         if self._h:
-            out = np.empty((count, self.height, self.width), np.uint8)
             got = self._lib.sdv_copy_frames(
                 self._h, first, count,
                 out.ctypes.data_as(ctypes.c_void_p))
             return out[:got]
         ysz = self.width * self.height
-        out = np.empty((count, ysz), np.uint8)
+        rows = out.reshape(count, ysz)
         for i in range(count):
             off = self._data_start + (first + i) * self._stride \
                 + self._y_offset
-            out[i] = np.frombuffer(self._mm, np.uint8, ysz, off)
-        return out.reshape(count, self.height, self.width)
+            rows[i] = np.frombuffer(self._mm, np.uint8, ysz, off)
+        return out
 
     def close(self):
         if self._h:

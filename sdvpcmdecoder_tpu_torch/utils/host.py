@@ -7,7 +7,8 @@ every numpy argument becomes a CPU tensor and every tensor result comes
 back as a numpy array, through tuples and NamedTuples both ways.
 `HostCopy` is the other direction's helper on a GPU: a device tensor on
 its way into pinned host memory; `upload` takes a host tensor to the
-device through pinned memory.
+device through pinned memory, and `StagingBuffer` is host memory that
+uploads again and again.
 """
 from __future__ import annotations
 
@@ -76,3 +77,54 @@ def upload(t: torch.Tensor, device) -> torch.Tensor:
     if device.type == "cuda" and t.device.type == "cpu":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+def _pinned_allocs():
+    """Pinned blocks torch's caching host allocator has allocated so far
+    in the process (not those it handed out again)."""
+    return torch.cuda.host_memory_stats().get("num_host_alloc", 0)
+
+
+class StagingBuffer:
+    """`nbytes` of host memory that stages uploads to `device` again and
+    again: pinned on CUDA, where `upload` is a non_blocking copy that does
+    not wait for the device's queue, and plain memory on the CPU.
+
+    The pinned block comes from torch's caching host allocator: a buffer
+    dropped gives its block back, and the next buffer of the process in
+    the block's size class takes it (not before the copies out of it have
+    run). `new` says whether the allocator pinned a new block for this one
+    (where other threads pin memory at the same time, theirs may count).
+
+    `event` is recorded after the last upload out of the buffer (CUDA
+    only): `wait` before the buffer is written again."""
+
+    def __init__(self, nbytes, device):
+        self.device = torch.device(device)
+        self.pinned = self.device.type == "cuda"
+        before = _pinned_allocs() if self.pinned else 0
+        self._host = torch.empty(nbytes, dtype=torch.uint8,
+                                 pin_memory=self.pinned)
+        self.new = self.pinned and _pinned_allocs() > before
+        self.event = None
+
+    def wait(self):
+        """Wait for the last upload out of the buffer to have run."""
+        if self.event is not None:
+            self.event.synchronize()
+            self.event = None
+
+    def array(self, shape) -> np.ndarray:
+        """The buffer's first bytes as a writable uint8 array of `shape`."""
+        return self._host[:int(np.prod(shape))].view(shape).numpy()
+
+    def upload(self, shape) -> torch.Tensor:
+        """The buffer's first bytes, as `array(shape)`, on the device
+        (`upload`), the event recorded after the copy. On the CPU the
+        result is the buffer's own memory: copy out of it before the
+        buffer is written again."""
+        t = upload(self._host[:int(np.prod(shape))].view(shape), self.device)
+        if self.pinned:
+            self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(self.device))
+        return t

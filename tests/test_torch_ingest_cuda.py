@@ -1,12 +1,14 @@
 """This slice's card paths against their plain or CPU versions, on an
 NVIDIA GPU: decode_stream's K1 route, the mesh step, concurrent shards on
 one card, the device histogram, a container through the CLI and the
-chip-resident driver's staging split into fields on the card. Marked
+chip-resident driver's staging split into fields on the card, through
+pinned buffers that a second decoder takes from the pool. Marked
 `cuda`: every test skips where torch.cuda.is_available() is false. On a
 GPU machine (no JAX there) run them with
 
     python -m pytest --noconftest -m cuda tests/test_torch_ingest_cuda.py
 """
+import gc
 import hashlib
 
 import numpy as np
@@ -131,3 +133,54 @@ def test_chunks_split_on_the_card_equal_the_host_split(cuda, tmp_path,
         path, cuda, 4, lines_per_field=lpf, frames_per_round=4)
     width = chip_smoke.WIDTH if capture == "full_width" else 2 * 720
     assert chunks == 3 and nbytes == 10 * 2 * lpf * width
+
+
+@pytest.mark.parametrize("fmt", ["stc007", "pcm1"])
+def test_chunks_staged_through_pinned_buffers(cuda, tmp_path, fmt):
+    """Every chunk goes to the card from the job's pinned staging buffer
+    (count_stage_pinned_chunks == count_stage_chunks) and equals the host
+    split byte for byte, the short last chunk too; a second decoder, once
+    the first is gone, pins no new buffer (count_stage_pin_allocs 0)."""
+    from sdvpcmdecoder_tpu_torch.pipeline import device_driver as dd
+    from sdvpcmdecoder_tpu_torch.pipeline import device_pcm as dp
+    path = str(tmp_path / f"{fmt}.y4m")
+    if fmt == "stc007":
+        chip_smoke.write_capture(path, 10, 294, seed=9)
+
+        def build():
+            return dd.DeviceBatchDecoder([(path, path + ".wav")],
+                                         device=cuda, hbm_frames=4,
+                                         frames_per_round=4)
+    else:
+        chip_smoke.write_pcm1_capture(path, n_frames=10, seed=9)
+
+        def build():
+            return dp.DevicePCMBatchDecoder([(path, path + ".wav")], "pcm1",
+                                            device=cuda, hbm_frames=4,
+                                            frames_per_round=4)
+    dec = build()
+    j = dec.jobs[0]
+    assert j.stage_buf.pinned and j.stage_buf._host.is_pinned()
+    chunks = []
+    with ingest.open_capture(path) as rd:
+        while True:
+            want, nums = ingest.split_fields_batch(
+                rd.read_frames(j.chunk_base, dec.hbm_frames))
+            want = torch.from_numpy(want).to(cuda)
+            assert j.px_dev.dtype == want.dtype
+            assert torch.equal(j.px_dev, want)
+            assert np.array_equal(j.nums, nums)
+            chunks.append(j.chunk_len)
+            if not dec._stage_chunk(j):
+                break
+    assert chunks == [4, 4, 2]
+    t = dec.stage_t
+    assert t["count_stage_pinned_chunks"] == t["count_stage_chunks"] == 3
+    del dec, j
+    gc.collect()
+    dec = build()
+    assert "count_stage_pin_allocs" not in dec.stage_t
+    dec.run()
+    t = dec.stage_t
+    assert t["count_stage_pinned_chunks"] == t["count_stage_chunks"] == 3
+    assert "count_stage_pin_allocs" not in t
