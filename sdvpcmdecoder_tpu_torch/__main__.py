@@ -194,20 +194,20 @@ def _decode_device(args, raw_size, mask_map, hyst, shift, out_path):
         return 2
     mask_mode = mask_map[(args.mask, args.mask_scope)]
     t0 = time.perf_counter()
-    jobs = [(args.input, out_path)]
+    from .pipeline import device_driver
+    kw = dict(hyst_limit=hyst, shift_limit=shift,
+              frames_per_round=args.batch, mask_mode=mask_mode,
+              device=args.device)
     if args.format in ("stc007", "m2"):
-        from .pipeline import device_driver
         from .pipeline import stitcher_stc007 as st
         # lines_per_field=None: derived from the driver's own reader —
         # opening the input here just to read the height would consume
         # a FIFO/stream input's header before the decoder reopens it.
         preset_video = {"auto": None, "pal": st.VID_PAL,
                         "ntsc": st.VID_NTSC}[args.standard]
-        dec = device_driver.DeviceBatchDecoder(
-            jobs, lines_per_field=None, hyst_limit=hyst,
-            shift_limit=shift, frames_per_round=args.batch,
-            mask_mode=mask_mode, use_kernel=args.pallas or None,
-            device=args.device,
+        fmt = "stc007"
+        kw.update(
+            lines_per_field=None, use_kernel=args.pallas or None,
             ref_sweep=args.quality == "insane",
             ref_sweep_fallback=args.quality == "normal",
             normal_sweep_prescan=args.quality in ("normal", "insane"),
@@ -220,12 +220,10 @@ def _decode_device(args, raw_size, mask_map, hyst, shift, out_path):
                 args.resolution],
             preset_sample_rate=args.sample_rate)
     else:
-        from .pipeline import device_pcm
-        dec = device_pcm.DevicePCMBatchDecoder(
-            jobs, fmt=args.format, hyst_limit=hyst, shift_limit=shift,
-            frames_per_round=args.batch, mask_mode=mask_mode,
-            refine=args.quality in ("normal", "insane"),
-            device=args.device)
+        fmt = args.format
+        kw.update(refine=args.quality in ("normal", "insane"))
+    dec = device_driver.chip_resident_decoder([(args.input, out_path)],
+                                              fmt, **kw)
     stats = dec.run()
     s = list(stats.values())[0]
     dt = max(time.perf_counter() - t0, 1e-9)

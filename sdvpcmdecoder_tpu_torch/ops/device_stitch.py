@@ -40,8 +40,8 @@ from ..formats import stc007
 from . import binarize as bz
 from . import deinterleave as di
 from . import fused_binarize as fb
-from ..utils.host import HostCopy, upload
-from .round_graph import thread_graphs
+from ..utils.host import HostCopy
+from .round_graph import call, thread_graphs
 
 KEEP = stc007.MIN_DEINT_DATA + stc007.INTERLEAVE_OFS // 2   # 120
 P_MAX = stc007.INTERLEAVE_OFS * 2                           # 32 paddings
@@ -235,10 +235,8 @@ def _on_device(name, body, inputs, static, device, graphs):
     programs once per shape and static arguments; else eagerly on the
     inputs uploaded. Each output is copied (HostCopy) before the thread's
     next call can replay into it, and one wait covers them all."""
-    if graphs:
-        outs = thread_graphs(device).run((name,) + static, body, inputs)
-    else:
-        outs = body(*(upload(t, device) for t in inputs))
+    outs = call(thread_graphs(device) if graphs else None,
+                (name,) + static, body, inputs, device)
     return [c.numpy() for c in [HostCopy(o) for o in outs]]
 
 

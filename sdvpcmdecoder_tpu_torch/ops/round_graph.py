@@ -48,6 +48,8 @@ The rules:
     starts another round of this object;
   * the kernel wrappers' launch counters (ops/fused_binarize) count a
     captured kernel once per replay, not at the capture;
+  * every caller goes through `call`, which runs the body eagerly where
+    the caller holds no RoundGraphs (its graphs=False);
   * captures hold a process-wide lock and run in thread-local capture
     mode, so decoder threads on one card (parallel/multichip.py) never
     capture at once and no other thread's call breaks a capture. One
@@ -74,6 +76,17 @@ from . import fused_binarize as fb
 
 _CAPTURE_LOCK = threading.Lock()
 _THREAD = threading.local()   # this thread's holders: device -> RoundGraphs
+
+
+def call(graphs, key, body, inputs, device, clone=()):
+    """body(*inputs) on `device`, as a tuple: with `graphs` (a
+    RoundGraphs) through its graph of `key` (RoundGraphs.run), with None
+    eagerly on the inputs uploaded (utils.host.upload; a tensor already
+    on `device` is passed as it is). Every caller that may replay takes
+    this one route, so none decides graph or eager itself."""
+    if graphs is None:
+        return tuple(body(*(upload(t, device) for t in inputs)))
+    return graphs.run(key, body, inputs, clone=clone)
 
 
 def thread_graphs(device) -> "RoundGraphs":

@@ -61,17 +61,12 @@ class ShardedBatchDecoder:
         self.shard_stats = None
 
     def _make_decoder(self, shard_jobs, dev):
-        from ..pipeline import batch_driver
+        from ..pipeline import batch_driver, device_driver
         if not self.device_resident:
             return batch_driver.BatchDecoder(shard_jobs, fmt=self.fmt,
                                              device=dev, **self.kw)
-        if self.fmt == "stc007":
-            from ..pipeline import device_driver
-            return device_driver.DeviceBatchDecoder(shard_jobs, device=dev,
-                                                    **self.kw)
-        from ..pipeline import device_pcm
-        return device_pcm.DevicePCMBatchDecoder(shard_jobs, fmt=self.fmt,
-                                                device=dev, **self.kw)
+        return device_driver.chip_resident_decoder(shard_jobs, self.fmt,
+                                                   device=dev, **self.kw)
 
     def _run_shard(self, dev, shard_jobs, out, idx):
         try:

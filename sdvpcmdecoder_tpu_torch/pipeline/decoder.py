@@ -35,7 +35,7 @@ from ..formats import stc007
 from ..ops import binarize as bz
 from ..ops import deinterleave as di
 from ..ops import fused_binarize as fb
-from ..ops.round_graph import thread_graphs
+from ..ops.round_graph import call, thread_graphs
 
 # The decoders decode_frames keeps in this thread: (device, static
 # arguments) -> StreamDecoder.
@@ -93,14 +93,14 @@ def decode_stream(pixels, coords, ref_level, black, white,
     if use_kernel is None:
         use_kernel = pixels.device.type == "cuda"
     static = (hyst_limit, shift_limit, res_mode, m2, use_kernel)
-    args = (pixels, coords, ref_level, black, white)
-    if not graphs:
-        return _decode_stream(*args, *static)
     body = functools.partial(_decode_stream, hyst_limit=hyst_limit,
                              shift_limit=shift_limit, res_mode=res_mode,
                              m2=m2, use_kernel=use_kernel)
-    return DecodeResult(*thread_graphs(pixels.device).run(
-        ("decode_stream",) + static, body, args, clone=range(4)))
+    return DecodeResult(*call(
+        thread_graphs(pixels.device) if graphs else None,
+        ("decode_stream",) + static, body,
+        (pixels, coords, ref_level, black, white), pixels.device,
+        clone=range(4)))
 
 
 class StreamDecoder(nn.Module):
@@ -142,14 +142,13 @@ class StreamDecoder(nn.Module):
                              torch.as_tensor(q_b, dtype=torch.int32))
 
     def forward(self, pixels, coords, ref_level, black, white):
-        args = (pixels, coords, ref_level, black, white)
-        if not self.graphs:
-            return self._forward(*args)
         key = ("StreamDecoder.forward", self.hyst_limit, self.shift_limit,
                self.res_mode, self.m2, self.use_kernel,
                tuple(b.data_ptr() for b in self.buffers()))
-        return DecodeResult(*thread_graphs(pixels.device).run(
-            key, self._forward, args, clone=range(4)))
+        return DecodeResult(*call(
+            thread_graphs(pixels.device) if self.graphs else None, key,
+            self._forward, (pixels, coords, ref_level, black, white),
+            pixels.device, clone=range(4)))
 
     def _forward(self, pixels, coords, ref_level, black, white):
         binarize = fb.stc007_fused_decode_frames if self.use_kernel \

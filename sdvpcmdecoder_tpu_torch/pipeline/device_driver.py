@@ -24,7 +24,8 @@ on; copy_to_host_async -> `HostCopy`; the jitted prescan gather ->
 `px[:, idx, :]` with idx on the device; jnp.take -> index_select; the
 round call -> `run_round` over `RoundState`, the state one round hands
 the next.  The PCM-1/16x0 driver (pipeline/device_pcm) shares the
-staging skeleton, StagedDeviceDecoder.
+round skeleton, StagedDeviceDecoder; chip_resident_decoder picks the
+driver by format.
 
 Reference scope: the full doFrameReassemble chain
 (stc007datastitcher.cpp:7250) with findPadding/tryPadding seam scoring
@@ -41,8 +42,8 @@ import torch
 
 from ..formats import stc007
 from ..ops import device_stitch as ds
-from ..ops.round_graph import RoundGraphs
-from ..utils.host import HostCopy, StagingBuffer, host_call, upload
+from ..ops.round_graph import RoundGraphs, call
+from ..utils.host import HostCopy, StagingBuffer, host_call
 from ..utils.trace import Tracer
 from . import batch_driver, ingest, v2d
 from . import stitcher_stc007 as st
@@ -64,7 +65,7 @@ def _fetch_words(trace, wflat, a, b):
 
 
 @functools.lru_cache(maxsize=None)
-def _prescan_idx(prescan_rows, L, device):
+def _rows_on(prescan_rows, L, device):
     """prescan_rows(L) on `device`, uploaded once: an upload from pageable
     memory waits for the rounds in the device's queue."""
     return torch.as_tensor(prescan_rows(L), device=device)
@@ -73,7 +74,7 @@ def _prescan_idx(prescan_rows, L, device):
 @functools.lru_cache(maxsize=None)
 def _field_rows(H, device):
     """ingest.field_perm(H): the rows on `device` (uploaded once, as
-    _prescan_idx) and the line numbers, read-only as every chunk of
+    _rows_on) and the line numbers, read-only as every chunk of
     every job shares them."""
     perm, nums = ingest.field_perm(H)
     nums.flags.writeable = False
@@ -95,15 +96,56 @@ def _split_fields(raw):
 
 class StagedDeviceDecoder(batch_driver.BatchDecoder):
     """Shared skeleton of the chip-resident drivers (STC-007, PCM-1/16x0):
-    bounded-chunk device staging, the capture round-robin visit loop
-    (complete pending round → restage at the chunk edge → dispatch the
-    next round), and the rounds-never-straddle-a-chunk rounding of
-    `hbm_frames`.  Subclasses provide _dispatch/_complete.
+    the constructor, bounded-chunk device staging, the capture
+    round-robin visit loop (complete pending round → restage at the
+    chunk edge → dispatch the next round), the rounds-never-straddle-a-
+    chunk rounding of `hbm_frames`, the prescan sample a round ahead, the
+    round's parameter vector, its read-back and the fetch of frames to
+    finalize on the host.  Subclasses name `prescan_rows` and
+    `round_param_layout`, provide _dispatch/_complete, and may add to the
+    device state (_init_device_state, _init_job_round).
 
-    Their constructors run under a `construct` span, with parts `open`
+    The constructor runs under a `construct` span, with parts `open`
     (BatchDecoder's readers, drivers and stitchers), `setup` (the device
     state), the first chunks' `stage_hbm` and the `wait` for them; every
     place the host blocks on the card is a `wait` span (`_wait`)."""
+
+    prescan_rows = None         # L -> the prescan rows of an L-line frame
+    round_param_layout = None   # F -> (offsets by key, length)
+
+    def __init__(self, jobs, hyst_limit, shift_limit, frames_per_round,
+                 hbm_frames, *, device, graphs, **kw):
+        self.trace = Tracer()
+        with self.trace.span("construct"):
+            self.device = torch.device(device)
+            with self.trace.span("open"):
+                super().__init__(jobs, hyst_limit=hyst_limit,
+                                 shift_limit=shift_limit,
+                                 frames_per_round=frames_per_round,
+                                 device=self.device, graphs=graphs, **kw)
+            with self.trace.span("setup"):
+                self.hyst_limit = hyst_limit
+                self.shift_limit = shift_limit
+                self._round_hbm_frames(frames_per_round, hbm_frames)
+                self.graphs = RoundGraphs(self.device) if graphs else None
+                self._init_device_state()
+            for j in self.jobs:
+                self._init_job_staging(j)
+                with self.trace.span("setup"):
+                    j.pending = None
+                    j.next_sample = j.next_sample_host = None
+                    self._init_job_round(j)
+                    if j.chunk_len:
+                        # Round 0's prescan rows: the copies complete
+                        # while the other captures stage.
+                        self._prefetch_sample(j, j.chunk_base)
+            self._await_staging()
+
+    def _init_device_state(self):
+        """The driver's state for every job, under `setup`."""
+
+    def _init_job_round(self, j):
+        """The driver's state for job `j`, under `setup`."""
 
     def _wait(self):
         """A span where the host waits for the card."""
@@ -212,6 +254,78 @@ class StagedDeviceDecoder(batch_driver.BatchDecoder):
                 with self._wait():
                     j.px_ready.synchronize()
         return True
+
+    def _prescan_idx(self, j):
+        return _rows_on(self.prescan_rows, j.Ls, self.device)
+
+    def _prefetch_sample(self, j, start):
+        """Gather the prescan rows of the round from frame `start` and
+        start their copy to the host (j.next_sample), which _materialize
+        takes a round later. Stops at the staging chunk's edge: the next
+        chunk is not resident yet, and its round gathers at dispatch."""
+        F = min(self.frames_per_round, j.chunk_base + j.chunk_len - start)
+        if F <= 0:
+            j.next_sample = None
+            return
+        lo = start - j.chunk_base
+        j.next_sample = (start, HostCopy(_gather_sample(
+            j.px_dev[lo:lo + F], self._prescan_idx(j))))
+
+    def _take_sample(self, j, px):
+        """The prescan rows [F * rows, W] of the round of pixels `px`
+        from j.frames_read, on the host: as _materialize took them, from
+        their copy in flight (round 0), or gathered now."""
+        if j.next_sample_host is not None \
+                and j.next_sample_host[0] == j.frames_read:
+            sample = j.next_sample_host[1]
+        elif j.next_sample is not None \
+                and j.next_sample[0] == j.frames_read:
+            with self._wait():
+                sample = j.next_sample[1].numpy()
+        else:
+            with self._wait():
+                sample = _gather_sample(
+                    px, self._prescan_idx(j)).cpu().numpy()
+        return sample.reshape(-1, j.W)
+
+    def _round_params(self, F, prep, **extra):
+        """The round's int32 parameter vector (round_param_layout(F)):
+        the prescan's coordinates and levels, clipped to what the round
+        reads, then the driver's `extra` keys."""
+        layout, n_par = self.round_param_layout(F)
+        params = np.empty(n_par, np.int32)
+        for key, arr in (("coords", prep["coords"]),
+                         ("refs", np.maximum(prep["refs"], 1)),
+                         ("blacks", np.clip(prep["blacks"], 0, 254)),
+                         ("whites", np.clip(prep["whites"], 1, 255)),
+                         ("usable", prep["usable"]), *extra.items()):
+            a = np.asarray(arr).ravel()
+            params[layout[key]:layout[key] + a.size] = a
+        return params
+
+    def _materialize(self, j, out, unpack, *args):
+        """unpack(the round's buffer on the host, *args), under
+        `materialize`: the host waits for the buffer's copy. Then the
+        next round's prescan rows come to the host (j.next_sample_host):
+        their copy was asked for a full cycle ago, right after this
+        round's, so it is local by now."""
+        with self._stage("materialize"):
+            with self._wait():
+                host = out.numpy()
+            res = unpack(host, *args)
+            if j.next_sample is not None:
+                with self._wait():
+                    sample = j.next_sample[1].numpy()
+                j.next_sample_host = (j.next_sample[0], sample)
+                j.next_sample = None
+        return res
+
+    def _fetch_frames(self, frames, *tensors):
+        """Rows `frames` of each tensor (the round's pixels, words) on
+        the host: one index_select each, and the host waits once."""
+        sel = torch.as_tensor(frames, device=self.device)
+        with self._wait():
+            return [t.index_select(0, sel).cpu().numpy() for t in tensors]
 
     def run(self):
         while True:
@@ -405,16 +519,13 @@ def run_round(pixels, params, state: RoundState, rows: _RoundRows, *,
             m2=m2, hyst_limit=hyst_limit, shift_limit=shift_limit,
             use_kernel=use_kernel, chained=chained, tables=tables)
 
-    params = torch.as_tensor(params, dtype=torch.int32)
-    if graphs is None:
-        res = body(pixels, upload(params, pixels.device), *state)
-    else:
-        # jax.jit's static arguments, and the tables the body closes over.
-        key = ("steady_round_packed", en_p, en_q, m2, hyst_limit,
-               shift_limit, use_kernel, chained, id(rows), id(tables))
-        res = graphs.run(key, body, (pixels, params, *state),
-                         clone=KEPT_OUTPUTS)
-    out, wflat, wtail, oktail, cn_w, cn_ok = res
+    # jax.jit's static arguments, and the tables the body closes over.
+    key = ("steady_round_packed", en_p, en_q, m2, hyst_limit, shift_limit,
+           use_kernel, chained, id(rows), id(tables))
+    out, wflat, wtail, oktail, cn_w, cn_ok = call(
+        graphs, key, body,
+        (pixels, torch.as_tensor(params, dtype=torch.int32), *state),
+        pixels.device, clone=KEPT_OUTPUTS)
     return out, wflat, RoundState(wtail, oktail, cn_w, cn_ok)
 
 
@@ -442,47 +553,34 @@ class DeviceBatchDecoder(StagedDeviceDecoder):
     other's that is still to be read.
     """
 
+    prescan_rows = staticmethod(v2d.prescan_rows)
+    round_param_layout = staticmethod(ds.round_param_layout)
+
     def __init__(self, jobs, lines_per_field=294, hyst_limit=2,
                  shift_limit=1, frames_per_round=16, use_kernel=None,
                  hbm_frames=256, *, device, graphs=True, **kw):
         from ..ops import stitch_native as _sn
-        self.trace = Tracer()
-        with self.trace.span("construct"):
-            self.device = torch.device(device)
-            if use_kernel is None:
-                use_kernel = self.device.type == "cuda"
-            # tpu-spec: steady pairs replay the round dispatch's device
-            # results; transition pairs (a handful per capture) use the
-            # bit-identical native tail.  Pure "tpu" (the device backend)
-            # when the C core is switched off.
-            with self.trace.span("open"):
-                super().__init__(
-                    jobs, lines_per_field=lines_per_field,
-                    hyst_limit=hyst_limit, shift_limit=shift_limit,
-                    frames_per_round=frames_per_round,
-                    seam_backend="tpu-spec" if _sn.available() else "tpu",
-                    device=self.device, use_kernel=use_kernel,
-                    graphs=graphs, **kw)
-            with self.trace.span("setup"):
-                self.hyst_limit = hyst_limit
-                self.shift_limit = shift_limit
-                self._round_hbm_frames(frames_per_round, hbm_frames)
-                self.use_kernel = use_kernel
-                self.graphs = RoundGraphs(self.device) if graphs else None
-                self.tables = ds.RoundTables().to(self.device)
-                self._rows_cache = {}
-                self._zero_carry = (
-                    torch.zeros((MDD, 8), dtype=torch.int32,
-                                device=self.device),
-                    torch.zeros((MDD, 8), dtype=torch.bool,
-                                device=self.device))
-            for j in self.jobs:
-                self._init_job_staging(j)
-                with self.trace.span("setup"):
-                    self._init_job_round(j, frames_per_round)
-            self._await_staging()
+        if use_kernel is None:
+            use_kernel = torch.device(device).type == "cuda"
+        self.use_kernel = use_kernel
+        # tpu-spec: steady pairs replay the round dispatch's device
+        # results; transition pairs (a handful per capture) use the
+        # bit-identical native tail.  Pure "tpu" (the device backend)
+        # when the C core is switched off.
+        super().__init__(jobs, hyst_limit, shift_limit, frames_per_round,
+                         hbm_frames, device=device, graphs=graphs,
+                         lines_per_field=lines_per_field,
+                         seam_backend="tpu-spec" if _sn.available()
+                         else "tpu", use_kernel=use_kernel, **kw)
 
-    def _init_job_round(self, j, frames_per_round):
+    def _init_device_state(self):
+        self.tables = ds.RoundTables().to(self.device)
+        self._rows_cache = {}
+        self._zero_carry = (
+            torch.zeros((MDD, 8), dtype=torch.int32, device=self.device),
+            torch.zeros((MDD, 8), dtype=torch.bool, device=self.device))
+
+    def _init_job_round(self, j):
         Ls = j.Ls
         j.prev_words = torch.zeros((Ls, 8), dtype=torch.int32,
                                    device=self.device)
@@ -490,18 +588,8 @@ class DeviceBatchDecoder(StagedDeviceDecoder):
                                  device=self.device)
         j.carry_dev = None
         j.carry_key = None
-        j.pending = None
         j.round_id = 0
         j.round_chained = []   # per dispatched round: chained or not
-        j.next_sample = None
-        j.next_sample_host = None
-        if j.chunk_len:
-            # Pre-gather round 0's prescan rows now; the async copies
-            # complete while the other captures stage.
-            F0 = min(frames_per_round, j.chunk_len)
-            s0 = _gather_sample(j.px_dev[:F0], _prescan_idx(
-                v2d.prescan_rows, Ls, self.device))
-            j.next_sample = (0, HostCopy(s0))
 
     def _rows(self, F, lpf, n0, padI, padO, target, tff):
         key = (F, lpf, n0, padI, padO, target, tff)
@@ -558,27 +646,13 @@ class DeviceBatchDecoder(StagedDeviceDecoder):
             lpf = Ls // 2
             lo = j.frames_read - j.chunk_base
             px = j.px_dev[lo:lo + F]
-            idx = _prescan_idx(v2d.prescan_rows, Ls, self.device)
             with self._stage("prescan"):
-                if not j.driver.search_needed():
-                    # Good-params skip: no sample gather, no read-back,
-                    # no host AGC/marker/sweep this round.
-                    prep = j.driver.prepare_frames(None,
-                                                   shape=(F, Ls, W))
-                else:
-                    if j.next_sample_host is not None \
-                            and j.next_sample_host[0] == j.frames_read:
-                        sample = j.next_sample_host[1]
-                    elif j.next_sample is not None \
-                            and j.next_sample[0] == j.frames_read:
-                        with self._wait():
-                            sample = j.next_sample[1].numpy()
-                    else:
-                        with self._wait():
-                            sample = _gather_sample(px, idx).cpu().numpy()
-                    sample = sample.reshape(F * len(idx), W)
-                    prep = j.driver.prepare_frames(None, sample=sample,
-                                                   shape=(F, Ls, W))
+                # Good-params skip: no sample gather, no read-back, no
+                # host AGC/marker/sweep this round.
+                sample = self._take_sample(j, px) \
+                    if j.driver.search_needed() else None
+                prep = j.driver.prepare_frames(None, sample=sample,
+                                               shape=(F, Ls, W))
             sti = j.stitcher
             padI, padO, target, tff, n0 = self._predict_geometry(j, lpf)
             rows = self._rows(F, lpf, n0, padI, padO, target, tff)
@@ -599,24 +673,11 @@ class DeviceBatchDecoder(StagedDeviceDecoder):
             if n0 and not chained:
                 carry_w[:n0] = conv.words_i32()
                 carry_ok[:n0] = conv.crc_ok8()
-            layout, n_par = ds.round_param_layout(F)
-            params = np.empty(n_par, np.int32)
-
-            def put(key, arr):
-                a = np.asarray(arr).ravel()
-                params[layout[key]:layout[key] + a.size] = a
-
-            put("coords", prep["coords"])
-            put("refs", np.maximum(prep["refs"], 1))
-            put("blacks", np.clip(prep["blacks"], 0, 254))
-            put("whites", np.clip(prep["whites"], 1, 255))
-            put("usable", prep["usable"])
-            put("carry_w", carry_w)
-            put("carry_ok", carry_ok)
             pred_mode = self._predict_conv_mode(sti)
-            put("pred_mode", pred_mode)
-            unch_lim = sti.max_unch_14 if sti.en_q else sti.max_unch_16
-            put("unch_lim", unch_lim)
+            params = self._round_params(
+                F, prep, carry_w=carry_w, carry_ok=carry_ok,
+                pred_mode=pred_mode,
+                unch_lim=sti.max_unch_14 if sti.en_q else sti.max_unch_16)
             # Frames whose stores the host WILL read words from — the
             # settle-in pairs' head frames (full stage machine, round 0)
             # and the capture's finish tail — get their word rows
@@ -662,17 +723,11 @@ class DeviceBatchDecoder(StagedDeviceDecoder):
                              pred_mode=pred_mode)
             j.round_id += 1
             j.frames_read += F
-            nxt = j.frames_read
             d = j.driver
-            search_next = (d.search_needed()
-                           or d._frames_prepared + self.frames_per_round
-                           >= d._next_search)
-            # Prefetch stops at the staging chunk's edge — the next
-            # chunk isn't resident yet; its round gathers at dispatch.
-            if nxt < chunk_end and search_next:
-                F2 = min(self.frames_per_round, chunk_end - nxt)
-                px2 = j.px_dev[nxt - j.chunk_base:nxt - j.chunk_base + F2]
-                j.next_sample = (nxt, HostCopy(_gather_sample(px2, idx)))
+            if (d.search_needed()
+                    or d._frames_prepared + self.frames_per_round
+                    >= d._next_search):
+                self._prefetch_sample(j, j.frames_read)
             else:
                 j.next_sample = None
 
@@ -736,22 +791,10 @@ class DeviceBatchDecoder(StagedDeviceDecoder):
     def _complete(self, j):
         p = j.pending
         j.pending = None
-        with self._stage("materialize"):
-            rows_ = p["rows"]
-            with self._wait():
-                out = p["out"].numpy()
-            (crc_read, valid, dup, cb, crcm, packed1, samples_conv,
-             res_counts, seam_stats) = ds.unpack_round(
-                out, p["F"], j.Ls, rows_.Bc)
-            # Read the next round's prescan sample HERE: its copy was
-            # requested a full cycle ago (right after this round's
-            # outputs), so it is local by now.
-            if j.next_sample is not None:
-                with self._wait():
-                    sample = j.next_sample[1].numpy()
-                j.next_sample_host = (j.next_sample[0], sample)
-                j.next_sample = None
         F, Ls = p["F"], j.Ls
+        (crc_read, valid, dup, cb, crcm, packed1, samples_conv, res_counts,
+         seam_stats) = self._materialize(j, p["out"], ds.unpack_round, F,
+                                         Ls, p["rows"].Bc)
         wflat = p["wflat"]   # resident [F*Ls, 8] i32, CB-rewritten
         prep, usable = p["prep"], p["prep"]["usable"]
         j.driver.note_feedback(bool((~valid[usable]).any())
@@ -771,11 +814,9 @@ class DeviceBatchDecoder(StagedDeviceDecoder):
                 # Some lines failed: fetch those frames' pixels AND
                 # words, and run the host finalize path (marker fallback
                 # + dup rebuild) exactly as the streaming driver would.
-                sel = torch.as_tensor(fb_frames, device=self.device)
-                with self._wait():
-                    px_host = p["px"].index_select(0, sel).cpu().numpy()
-                    w_fb = wflat.reshape(F, Ls, 8).index_select(0, sel) \
-                        .cpu().numpy().astype(np.int64)
+                px_host, w_fb = self._fetch_frames(
+                    fb_frames, p["px"], wflat.reshape(F, Ls, 8))
+                w_fb = w_fb.astype(np.int64)
                 crc_fb = crc_read[fb_frames].astype(np.int64)
                 cb_fb = cb[fb_frames]
                 if cb_fb.any():
@@ -847,3 +888,13 @@ class DeviceBatchDecoder(StagedDeviceDecoder):
                 carry_n=p["n0"], carry_w=p["carry_w"],
                 carry_ok=p["carry_ok"])
         self._stitch_and_write(j, stores)
+
+
+def chip_resident_decoder(jobs, fmt, **kw):
+    """The chip-resident driver of format `fmt`: DeviceBatchDecoder for
+    "stc007", DevicePCMBatchDecoder for "pcm1", "pcm16x0" and "pcm1630"
+    (it refuses any other format)."""
+    if fmt == "stc007":
+        return DeviceBatchDecoder(jobs, **kw)
+    from .device_pcm import DevicePCMBatchDecoder
+    return DevicePCMBatchDecoder(jobs, fmt, **kw)

@@ -36,14 +36,13 @@ pcm16x0datastitcher.cpp:5652 doFrameReassemble).
 """
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..ops import device_pcm as dp
-from ..ops.round_graph import RoundGraphs
-from ..utils.host import HostCopy, upload
-from ..utils.trace import Tracer
-from .device_driver import StagedDeviceDecoder, _gather_sample, _prescan_idx
+from ..ops.round_graph import call
+from ..utils.host import HostCopy
+from .device_driver import StagedDeviceDecoder
+from .v2d_other import PCMFrameDriver
 
 
 def run_round(pixels, params, *, fmt, shift_limit, hyst_limit,
@@ -58,11 +57,9 @@ def run_round(pixels, params, *, fmt, shift_limit, hyst_limit,
                                     shift_limit=shift_limit,
                                     hyst_limit=hyst_limit),)
 
-    params = torch.as_tensor(params, dtype=torch.int32)
-    if graphs is None:
-        return body(pixels, upload(params, pixels.device))[0]
-    key = ("pcm_round_packed", fmt, shift_limit, hyst_limit)
-    return graphs.run(key, body, (pixels, params))[0]
+    return call(graphs, ("pcm_round_packed", fmt, shift_limit, hyst_limit),
+                body, (pixels, torch.as_tensor(params, dtype=torch.int32)),
+                pixels.device)[0]
 
 
 class DevicePCMBatchDecoder(StagedDeviceDecoder):
@@ -79,51 +76,23 @@ class DevicePCMBatchDecoder(StagedDeviceDecoder):
     (a pool of its own) stays unused.
     """
 
+    prescan_rows = staticmethod(PCMFrameDriver.prescan_rows)
+    round_param_layout = staticmethod(dp.round_param_layout)
+
     def __init__(self, jobs, fmt, hyst_limit=0, shift_limit=2,
                  frames_per_round=16, hbm_frames=256, *, device="cuda",
                  graphs=True, **kw):
         if fmt not in ("pcm1", "pcm16x0", "pcm1630"):
             raise ValueError(f"DevicePCMBatchDecoder: unsupported {fmt!r}")
-        self.trace = Tracer()
-        with self.trace.span("construct"):
-            self.device = torch.device(device)
-            with self.trace.span("open"):
-                super().__init__(jobs, fmt=fmt, hyst_limit=hyst_limit,
-                                 shift_limit=shift_limit,
-                                 frames_per_round=frames_per_round,
-                                 device=self.device, graphs=graphs, **kw)
-            with self.trace.span("setup"):
-                self.dec_fmt = "pcm1" if fmt == "pcm1" else "pcm16x0"
-                self.hyst_limit = hyst_limit
-                self.shift_limit = shift_limit
-                self.graphs = RoundGraphs(self.device) if graphs else None
-                # Frames copied back for refinement, and the copies.
-                self.fetched_frames = 0
-                self.fetch_copies = 0
-                self._round_hbm_frames(frames_per_round, hbm_frames)
-            for j in self.jobs:
-                self._init_job_staging(j)
-                with self.trace.span("setup"):
-                    j.pending = None
-                    j.next_sample = None
-                    if j.chunk_len:
-                        self._prefetch_sample(j, 0)
-            self._await_staging()
+        super().__init__(jobs, hyst_limit, shift_limit, frames_per_round,
+                         hbm_frames, device=device, graphs=graphs, fmt=fmt,
+                         **kw)
 
-    def _prescan_idx(self, j):
-        return _prescan_idx(type(j.driver).prescan_rows, j.Ls, self.device)
-
-    def _prefetch_sample(self, j, start):
-        """Request the prescan rows of the round starting at `start`;
-        the asynchronous copy completes while other work proceeds.
-        Stops at the staging chunk's edge."""
-        F = min(self.frames_per_round, j.chunk_base + j.chunk_len - start)
-        if F <= 0:
-            j.next_sample = None
-            return
-        lo = start - j.chunk_base
-        s = _gather_sample(j.px_dev[lo:lo + F], self._prescan_idx(j))
-        j.next_sample = (start, HostCopy(s))
+    def _init_device_state(self):
+        self.dec_fmt = "pcm1" if self.fmt == "pcm1" else "pcm16x0"
+        # Frames copied back for refinement, and the copies.
+        self.fetched_frames = 0
+        self.fetch_copies = 0
 
     # run/_visit/_stage_chunk inherited from StagedDeviceDecoder.
     def _dispatch(self, j):
@@ -134,32 +103,13 @@ class DevicePCMBatchDecoder(StagedDeviceDecoder):
             lo = j.frames_read - j.chunk_base
             px = j.px_dev[lo:lo + F]
             with self._stage("prescan"):
-                if j.next_sample is not None \
-                        and j.next_sample[0] == j.frames_read:
-                    with self._wait():
-                        sample = j.next_sample[1].numpy()
-                else:
-                    with self._wait():
-                        sample = _gather_sample(
-                            px, self._prescan_idx(j)).cpu().numpy()
-                sample = sample.reshape(F * sample.shape[1], W)
+                sample = self._take_sample(j, px)
                 with self.trace.span("pcm_agc"):
                     prep = j.driver.prepare_frames(None, sample=sample,
                                                    shape=(F, Ls, W))
             with self.trace.span("pcm_round"):
-                layout, n_par = dp.round_param_layout(F)
-                params = np.empty(n_par, np.int32)
-
-                def put(key, arr):
-                    a = np.asarray(arr).ravel()
-                    params[layout[key]:layout[key] + a.size] = a
-
-                put("coords", prep["coords"])
-                put("refs", np.maximum(prep["refs"], 1))
-                put("blacks", np.clip(prep["blacks"], 0, 254))
-                put("whites", np.clip(prep["whites"], 1, 255))
-                put("usable", prep["usable"])
-                out = run_round(px, params, fmt=self.dec_fmt,
+                out = run_round(px, self._round_params(F, prep),
+                                fmt=self.dec_fmt,
                                 shift_limit=self.shift_limit,
                                 hyst_limit=self.hyst_limit,
                                 graphs=self.graphs)
@@ -173,11 +123,8 @@ class DevicePCMBatchDecoder(StagedDeviceDecoder):
         j.pending = None
         F, Ls = p["F"], j.Ls
         prep = p["prep"]
-        with self._stage("materialize"):
-            with self._wait():
-                out = p["out"].numpy()
-            words, crc, valid, ctrl = dp.unpack_round(
-                out, F, Ls, self.dec_fmt)
+        words, crc, valid, ctrl = self._materialize(
+            j, p["out"], dp.unpack_round, F, Ls, self.dec_fmt)
         with self._stage("finalize"):
             # The frames finalize_decoded refines (usable, some line
             # failed): their pixels come back in one gather and one copy.
@@ -187,9 +134,7 @@ class DevicePCMBatchDecoder(StagedDeviceDecoder):
             rows = {}
             if fetch:
                 with self.trace.span("pcm_refine"):
-                    sel = torch.as_tensor(fetch, device=self.device)
-                    with self._wait():
-                        host = p["px"].index_select(0, sel).cpu().numpy()
+                    host, = self._fetch_frames(fetch, p["px"])
                 rows = dict(zip(fetch, host))
                 self.fetched_frames += len(fetch)
                 self.fetch_copies += 1

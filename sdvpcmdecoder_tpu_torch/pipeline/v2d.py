@@ -49,8 +49,8 @@ import torch
 from ..formats import stc007
 from ..ops import agc, binarize as bz, markers
 from ..ops import fused_binarize as fb
-from ..ops.round_graph import thread_graphs
-from ..utils.host import HostCopy, host_call, upload
+from ..ops.round_graph import call, thread_graphs
+from ..utils.host import HostCopy, host_call
 
 COORD_CHECK_LINES = 4     # videotodigital.h:98-105
 COORD_CHECK_PARTS = COORD_CHECK_LINES + 1
@@ -521,11 +521,9 @@ class V2DDriver:
         the bodies read), else eagerly on the inputs uploaded. Outputs
         outside `clone` are a graph's own buffers: the caller copies
         them (HostCopy) before the driver's next call."""
-        if self.graphs is None:
-            return tuple(body(*(upload(t, self.device) for t in inputs)))
         key = (name, self.use_kernel, self.hyst_limit, self.shift_limit,
                self.sweep_step)
-        return self.graphs.run(key, body, inputs, clone=clone)
+        return call(self.graphs, key, body, inputs, self.device, clone)
 
     def _grid_body(self, *args):
         """The trial grid: words, crc_read, valid (contiguous: the plain

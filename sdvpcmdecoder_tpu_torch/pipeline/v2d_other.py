@@ -41,8 +41,8 @@ import numpy as np
 import torch
 
 from ..ops import agc, line_decode_np as ld
-from ..ops.round_graph import thread_graphs
-from ..utils.host import HostCopy, upload
+from ..ops.round_graph import call, thread_graphs
+from ..utils.host import HostCopy
 from ..utils.trace import Tracer
 from .v2d import _imed
 
@@ -266,12 +266,9 @@ class PCMFrameDriver:
                                               requirements=("C", "W"))),) \
             + tuple(torch.from_numpy(a)
                     for a in (coords, refs, blacks, whites))
-        if self.graphs is None:
-            out = body(*(upload(t, self.device) for t in inputs))
-        else:
-            out = self.graphs.run(
-                ("frame_decode", self.fmt, self.shift_limit,
-                 self.hyst_limit), body, inputs)
+        out = call(self.graphs, ("frame_decode", self.fmt,
+                                 self.shift_limit, self.hyst_limit),
+                   body, inputs, self.device)
         copies = [HostCopy(t) for t in out]   # before the next replay
         host = tuple(c.numpy() for c in copies)
         return host + (None,) if self.fmt == "pcm1" else host

@@ -21,6 +21,7 @@ from sdvpcmdecoder_tpu.pipeline import ingest as jingest
 from sdvpcmdecoder_tpu.pipeline import probe as jprobe
 from sdvpcmdecoder_tpu.pipeline import v2d_other as jvo
 from sdvpcmdecoder_tpu_torch.pipeline import batch_driver as tbd
+from sdvpcmdecoder_tpu_torch.pipeline import device_driver as tdd
 from sdvpcmdecoder_tpu_torch.pipeline import device_pcm as tdp
 from sdvpcmdecoder_tpu_torch.pipeline import ingest
 from sdvpcmdecoder_tpu_torch.pipeline import probe as tprobe
@@ -215,12 +216,12 @@ def test_device_pcm_prefetched_and_gathered_prescan_rows(tmp_path,
     write the native BatchDecoder's WAV."""
     cap = capture(tmp_path, "pcm16x0", n_frames=6, seed=5)
     callers = []
-    gather = tdp._gather_sample
+    gather = tdd._gather_sample
 
     def spy(px, idx):
         callers.append(inspect.stack()[1].function)
         return gather(px, idx)
-    monkeypatch.setattr(tdp, "_gather_sample", spy)
+    monkeypatch.setattr(tdd, "_gather_sample", spy)
     got, dec = run_device(tdp, [cap], tmp_path, "t", fmt="pcm16x0",
                           shift_limit=1, frames_per_round=3,
                           hbm_frames=hbm)
@@ -230,7 +231,7 @@ def test_device_pcm_prefetched_and_gathered_prescan_rows(tmp_path,
     assert got == ref
     assert dec.jobs[0].stage_next == 6
     if hbm == 3:
-        assert callers == ["_prefetch_sample", "_dispatch"]
+        assert callers == ["_prefetch_sample", "_take_sample"]
     else:
         assert callers == ["_prefetch_sample", "_prefetch_sample"]
 

@@ -73,7 +73,7 @@ class Nesting(Tracer):
 
 @pytest.fixture
 def nesting(monkeypatch):
-    for mod in (tbd, tdd, tdp):
+    for mod in (tbd, tdd):
         monkeypatch.setattr(mod, "Tracer", Nesting)
 
 
@@ -191,8 +191,26 @@ def test_staging_parts_inside_stage_hbm(nested_run):
         <= t["stage_hbm"]
 
 
-def test_construct_and_its_parts(nested_run):
-    dec = nested_run
+@pytest.fixture(scope="module")
+def nested_pcm_run(tmp_path_factory):
+    """One DevicePCMBatchDecoder run on the CPU under the Nesting tracer:
+    two PCM-16x0 captures of 3 frames, 2 frames a round."""
+    tmp = tmp_path_factory.mktemp("nested_pcm")
+    caps = [chip_smoke.write_pcm16x0_capture(str(tmp / f"p{i}.y4m"),
+                                             n_frames=3, seed=3 + i)
+            for i in range(2)]
+    jobs = [(c, str(tmp / f"p{k}.wav")) for k, c in enumerate(caps)]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tdd, "Tracer", Nesting)
+        dec = tdp.DevicePCMBatchDecoder(jobs, fmt="pcm16x0",
+                                        frames_per_round=2, device="cpu")
+        dec.run()
+    return dec
+
+
+@pytest.mark.parametrize("run", ["nested_run", "nested_pcm_run"])
+def test_construct_and_its_parts(run, request):
+    dec = request.getfixturevalue(run)
     tr = dec.trace
     assert tr.parents("construct") == {None: 1}
     kids = Counter(n for n, p in tr.pairs if p == "construct")
