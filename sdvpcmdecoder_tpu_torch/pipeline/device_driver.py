@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import functools
 import inspect
+from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple
 
 import numpy as np
@@ -94,6 +95,24 @@ def _split_fields(raw):
     return lines.view(F, H, W * rep), nums
 
 
+def _read_after(event, trace, reader, first, out, read_into):
+    """A read ahead, on a read pool thread: wait for the staging buffer's
+    last upload (`event`; None where none is pending), then, under the
+    `stage_readahead` span of `trace`, the reader's frames from `first`,
+    as many as `out` holds (fewer at the end), in `out`
+    (read_frames(..., out=) where `read_into`, else read, then copied):
+    out's first frames."""
+    if event is not None:
+        event.synchronize()
+    with trace.span("stage_readahead"):
+        if read_into:
+            return reader.read_frames(first, len(out), out=out)
+        batch = reader.read_frames(first, len(out))
+        out = out[:len(batch)]
+        np.copyto(out, batch)
+        return out
+
+
 class StagedDeviceDecoder(batch_driver.BatchDecoder):
     """Shared skeleton of the chip-resident drivers (STC-007, PCM-1/16x0):
     the constructor, bounded-chunk device staging, the capture
@@ -108,7 +127,14 @@ class StagedDeviceDecoder(batch_driver.BatchDecoder):
     The constructor runs under a `construct` span, with parts `open`
     (BatchDecoder's readers, drivers and stitchers), `setup` (the device
     state), the first chunks' `stage_hbm` and the `wait` for them; every
-    place the host blocks on the card is a `wait` span (`_wait`)."""
+    place the host blocks on the card is a `wait` span (`_wait`).
+
+    Each job reads its next chunk ahead on a thread of the decoder's
+    read pool (`_read_ahead`, at most one read a job in flight) while the
+    chunk staged before it decodes; the constructor starts every job's
+    first read at once. A read's error comes out at its job's next chunk
+    edge. The threads have stopped when `run` returns; when it raises,
+    each ends with its read (`_stop_reads`)."""
 
     prescan_rows = None         # L -> the prescan rows of an L-line frame
     round_param_layout = None   # F -> (offsets by key, length)
@@ -129,17 +155,27 @@ class StagedDeviceDecoder(batch_driver.BatchDecoder):
                 self._round_hbm_frames(frames_per_round, hbm_frames)
                 self.graphs = RoundGraphs(self.device) if graphs else None
                 self._init_device_state()
-            for j in self.jobs:
-                self._init_job_staging(j)
-                with self.trace.span("setup"):
-                    j.pending = None
-                    j.next_sample = j.next_sample_host = None
-                    self._init_job_round(j)
-                    if j.chunk_len:
-                        # Round 0's prescan rows: the copies complete
-                        # while the other captures stage.
-                        self._prefetch_sample(j, j.chunk_base)
-            self._await_staging()
+                # The reads ahead, a thread a job at most: a read holds
+                # no GIL (it waits on the card or copies in C).
+                self._reads = ThreadPoolExecutor(max(1, len(self.jobs)))
+            try:
+                # Every job's first read starts before any job stages.
+                for j in self.jobs:
+                    self._init_job_staging(j)
+                for j in self.jobs:
+                    self._stage_chunk(j, block=False)
+                    with self.trace.span("setup"):
+                        j.pending = None
+                        j.next_sample = j.next_sample_host = None
+                        self._init_job_round(j)
+                        if j.chunk_len:
+                            # Round 0's prescan rows: the copies complete
+                            # while the other captures stage.
+                            self._prefetch_sample(j, j.chunk_base)
+                self._await_staging()
+            except BaseException:
+                self._stop_reads(wait=False)
+                raise
 
     def _init_device_state(self):
         """The driver's state for every job, under `setup`."""
@@ -169,8 +205,32 @@ class StagedDeviceDecoder(batch_driver.BatchDecoder):
         j.px_ready = None
         j.nums = None
         j.Ls = j.W = 0
+        j.stage_read = None
         self._take_stage_buffer(j)
-        self._stage_chunk(j, block=False)
+        self._read_ahead(j)
+
+    def _read_ahead(self, j):
+        """Start the read of the job's next chunk (from j.stage_next) into
+        its staging buffer on the read pool, as j.stage_read. The buffer's
+        event goes with the read: the thread waits for the buffer's last
+        upload, then reads under a `stage_readahead` span. With no buffer
+        (a job with no frame to read) nothing starts."""
+        buf = j.stage_buf
+        if buf is None:
+            return
+        event, buf.event = buf.event, None
+        j.stage_read = self._reads.submit(
+            _read_after, event, self.trace, j.reader, j.stage_next,
+            buf.array(j.stage_shape), j.read_into)
+
+    def _stop_reads(self, wait=True):
+        """Stop the read pool and drop every job's read. With `wait` the
+        reads in flight end first and the threads have stopped; without
+        (on an error) they are left to end on their own, so a read that
+        blocks on a stalled stream does not hold the error back."""
+        self._reads.shutdown(wait=wait, cancel_futures=True)
+        for j in self.jobs:
+            j.stage_read = None
 
     def _take_stage_buffer(self, j):
         """The job's staging buffer (utils/host.StagingBuffer): one chunk
@@ -199,37 +259,33 @@ class StagedDeviceDecoder(batch_driver.BatchDecoder):
                 if j.px_ready is not None:
                     j.px_ready.synchronize()
 
-    def _read_chunk(self, j):
-        """The next chunk's frames, read into the job's staging buffer."""
-        if j.stage_buf is None:    # the job started with no frame to read
-            return np.zeros((0,) + j.stage_shape[1:], np.uint8)
-        out = j.stage_buf.array(j.stage_shape)
-        if j.read_into:
-            return j.reader.read_frames(j.stage_next, len(out), out=out)
-        batch = j.reader.read_frames(j.stage_next, len(out))
-        out = out[:len(batch)]
-        np.copyto(out, batch)
-        return out
-
     def _stage_chunk(self, j, block=True):
-        """Stage the next bounded chunk of frames on the device: read
-        them into the job's staging buffer, upload them, then split them
-        into fields there (`_split_fields`).  Returns False at EOF
+        """Stage the next bounded chunk of frames on the device: take
+        them in the job's staging buffer (its read ahead), upload them,
+        split them into fields there (`_split_fields`), then start the
+        next chunk's read (`_read_ahead`).  Returns False at EOF
         (j.exhausted set).  On CUDA the buffer is pinned: the upload
         does not wait for the rounds queued before it, and the read
-        waits for the buffer's last upload, a chunk back.  With `block`
-        the host then waits for the split, and so for every round queued
-        before it (a `wait` span)."""
+        waits for the buffer's last upload, a chunk back.  `stage_read`
+        is the host's wait for the read ahead's frames;
+        `count_stage_readahead_chunks` counts the chunks whose read had
+        ended when the host asked.  With `block` the host then waits for
+        the split, and so for every round queued before it (a `wait`
+        span)."""
         buf = j.stage_buf
         with self._stage("stage_hbm"):
-            if buf is not None and buf.event is not None:
-                with self._wait():
-                    buf.wait()
+            read, j.stage_read = j.stage_read, None
+            if read is None:       # the job started with no frame to read
+                j.exhausted = True
+                return False
             with self.trace.span("stage_read"):
-                batch = self._read_chunk(j)
+                ahead = read.done()
+                batch = read.result()
             if batch.shape[0] == 0:
                 j.exhausted = True
                 return False
+            if ahead:
+                self.trace.count("count_stage_readahead_chunks")
             # Every round of the previous chunk is queued: drop it, so the
             # raw upload can take its block (the allocator orders reuse
             # on the stream) and staging needs no more device memory
@@ -250,6 +306,7 @@ class StagedDeviceDecoder(batch_driver.BatchDecoder):
             j.chunk_base = j.stage_next
             j.chunk_len, j.Ls, j.W = j.px_dev.shape
             j.stage_next += j.chunk_len
+            self._read_ahead(j)
             if block and j.px_ready is not None:
                 with self._wait():
                     j.px_ready.synchronize()
@@ -328,12 +385,17 @@ class StagedDeviceDecoder(batch_driver.BatchDecoder):
             return [t.index_select(0, sel).cpu().numpy() for t in tensors]
 
     def run(self):
-        while True:
-            live = [j for j in self.jobs if not j.done]
-            if not live:
-                break
-            for j in live:
-                self._visit(j)
+        try:
+            while True:
+                live = [j for j in self.jobs if not j.done]
+                if not live:
+                    break
+                for j in live:
+                    self._visit(j)
+        except BaseException:
+            self._stop_reads(wait=False)
+            raise
+        self._stop_reads()
         return {j.path: j.stats for j in self.jobs}
 
     def _visit(self, j):
@@ -348,7 +410,7 @@ class StagedDeviceDecoder(batch_driver.BatchDecoder):
             if j.pending is None:
                 self._stitch_and_write(j, [], finish=True)
                 self._drain_final(j)
-                j.stage_buf = None
+                j.stage_buf = None    # no read in flight holds it now
                 j.done = True
             return
         self._dispatch(j)

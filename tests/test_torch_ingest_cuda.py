@@ -184,3 +184,72 @@ def test_chunks_staged_through_pinned_buffers(cuda, tmp_path, fmt):
     t = dec.stage_t
     assert t["count_stage_pinned_chunks"] == t["count_stage_chunks"] == 3
     assert "count_stage_pin_allocs" not in t
+
+
+@pytest.mark.parametrize("fmt", ["stc007", "pcm1"])
+def test_reads_ahead_wait_for_the_buffers_last_upload(cuda, tmp_path,
+                                                      monkeypatch, fmt):
+    """No read ahead writes a job's pinned staging buffer before the
+    buffer's last upload has run: the event StagingBuffer.upload recorded
+    for it has completed whenever the reader is asked to fill it, as the
+    chunks are staged one by one and through a whole run. Every chunk
+    staged on the card is `_split_fields` of the frames as read."""
+    from sdvpcmdecoder_tpu_torch.pipeline import device_driver as dd
+    from sdvpcmdecoder_tpu_torch.pipeline import device_pcm as dp
+    from sdvpcmdecoder_tpu_torch.utils import host
+    last_upload = {}     # the buffer's address -> its last upload's event
+    upload = host.StagingBuffer.upload
+
+    def recorded_upload(self, shape):
+        t = upload(self, shape)
+        last_upload[self._host.data_ptr()] = self.event
+        return t
+
+    read_frames = ingest.VideoReader.read_frames
+    frames_read = {}     # first frame -> a copy of the frames read
+
+    def checked_read(self, first, count, out=None):
+        if out is not None:
+            ev = last_upload.get(out.ctypes.data)
+            assert ev is None or ev.query(), \
+                f"frame {first} read into a buffer whose upload is queued"
+        got = read_frames(self, first, count, out=out)
+        frames_read[first] = got.copy()
+        return got
+
+    monkeypatch.setattr(host.StagingBuffer, "upload", recorded_upload)
+    monkeypatch.setattr(ingest.VideoReader, "read_frames", checked_read)
+    path = str(tmp_path / f"{fmt}.y4m")
+    if fmt == "stc007":
+        chip_smoke.write_capture(path, 10, 294, seed=9)
+
+        def build(out):
+            return dd.DeviceBatchDecoder([(path, out)], device=cuda,
+                                         hbm_frames=4, frames_per_round=4)
+    else:
+        chip_smoke.write_pcm1_capture(path, n_frames=10, seed=9)
+
+        def build(out):
+            return dp.DevicePCMBatchDecoder([(path, out)], "pcm1",
+                                            device=cuda, hbm_frames=4,
+                                            frames_per_round=4)
+    dec = build(path + ".a.wav")
+    j = dec.jobs[0]
+    assert j.stage_read is not None
+    chunks = []
+    while True:
+        want, nums = dd._split_fields(
+            torch.from_numpy(frames_read[j.chunk_base]).to(cuda))
+        assert torch.equal(j.px_dev, want)
+        assert np.array_equal(j.nums, nums)
+        chunks.append(j.chunk_len)
+        if not dec._stage_chunk(j):
+            break
+    dec._stop_reads()
+    assert chunks == [4, 4, 2] and sorted(frames_read) == [0, 4, 8, 10]
+    dec = build(path + ".b.wav")
+    dec.run()
+    t = dec.stage_t
+    assert t["count_stage_chunks"] == 3
+    assert t["count_stage_readahead_chunks"] <= 3
+    assert not any(th.is_alive() for th in dec._reads._threads)

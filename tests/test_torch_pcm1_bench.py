@@ -137,7 +137,7 @@ def test_a_traced_run_reads_every_metric_the_cell_lists(tmp_path):
     assert out["correct"], out["checks"]
     want = {m["name"] for m in cell.per_layer
             if m["source"] != "device_trace"}
-    assert set(METRICS) <= want and len(want) == 17
+    assert set(METRICS) <= want and len(want) == 19
     assert want <= set(out["metrics"])
 
 

@@ -194,8 +194,9 @@ def write_capture(tmp_path, decoder, name, seed):
 def test_staging_buffers_go_with_their_jobs(tmp_path, decoder, first):
     """Each job holds a staging buffer of its own, one chunk of frames,
     from construction until the job is done (`run`) or its decoder goes
-    (`dropped`); then nothing holds the buffer, so its block goes back to
-    torch's caching host allocator for the next decoder. That decoder
+    (`dropped`); then nothing holds the buffer (after `run` no read ahead
+    either: no future, no thread), so its block goes back to torch's
+    caching host allocator for the next decoder. That decoder
     writes the WAVs the first one wrote."""
     caps = [write_capture(tmp_path, decoder, f"c{k}", 7 + k)
             for k in range(2)]
@@ -212,6 +213,9 @@ def test_staging_buffers_go_with_their_jobs(tmp_path, decoder, first):
         dec.run()
         assert all(j.stage_buf is None for j in dec.jobs)
         assert all(b() is None for b in bufs)
+        # No read ahead is left to hold a buffer: no future, no thread.
+        assert all(j.stage_read is None for j in dec.jobs)
+        assert not any(t.is_alive() for t in dec._reads._threads)
         t = dec.stage_t
         assert t["count_stage_chunks"] == 2 * -(-dec.jobs[0].stage_next
                                                 // HBM)
@@ -238,3 +242,30 @@ def test_stage_pinned_share_reads_the_counters(stage_t, share):
     from bench_port import cells, harness
     rec = harness.Record(frames=6400, stage_t=dict(stage_t))
     assert cells.metric_reader("stage_pinned_share")(rec) == share
+
+
+@pytest.mark.parametrize("stage_t, share", [
+    ({"count_stage_chunks": 32.0, "count_stage_readahead_chunks": 32.0,
+      "stage_readahead": 0.5}, 1.0),
+    ({"count_stage_chunks": 32.0, "count_stage_readahead_chunks": 24.0,
+      "stage_readahead": 0.5}, 0.75),
+    ({"count_stage_chunks": 4.0, "stage_readahead": 0.1}, 0.0),  # no hit
+    ({"count_stage_chunks": 4.0}, None),   # a program with no read ahead
+    ({"stage_hbm": 1.0, "stage_read": 0.1}, None),     # no such counter
+], ids=["all", "some", "none", "edge", "no_chunks"])
+def test_stage_readahead_share_reads_the_counters(stage_t, share):
+    from bench_port import cells, harness
+    rec = harness.Record(frames=6400, stage_t=dict(stage_t))
+    assert cells.metric_reader("stage_readahead_share")(rec) == share
+
+
+@pytest.mark.parametrize("stage_t, ms", [
+    ({"stage_readahead": 0.64, "stage_read": 0.032}, 0.1),
+    ({"stage_readahead": 0.0}, 0.0),
+    ({"stage_hbm": 1.0, "stage_read": 0.1}, None),     # no read ahead
+], ids=["reads", "zero", "no_span"])
+def test_stage_readahead_ms_per_frame_reads_the_span(stage_t, ms):
+    from bench_port import cells, harness
+    rec = harness.Record(frames=6400, stage_t=dict(stage_t))
+    got = cells.metric_reader("stage_readahead_ms_per_frame")(rec)
+    assert got == (None if ms is None else pytest.approx(ms))
