@@ -4512,6 +4512,43 @@ inline void sweep_trial(const uint8_t* px, int64_t width, int64_t start,
     }
 }
 
+// PCM-16x0 part 3 (line_decode_np.ALL_PARTS): a trial counts only where
+// all three sublines read with a good CRC (each its own first valid
+// shift, the Bit Picker for the edge ones). Words and CRC are part 0's,
+// the shift the largest of the three, the rank the Bit Picker's as PCM-1
+// gives it. Part 2 is read first: its band of readable stops is the
+// narrowest, so most misses end there. The port's own: part 0 alone
+// leaves the stop edge loose.
+inline void sweep_trial_all_parts(
+    const uint8_t* px, int64_t width, int64_t start, int64_t stop,
+    int ref, int black, int white, int shift_limit, int left_pick,
+    int right_pick, SweepEntry* e) {
+    SweepEntry far, mid;
+    sweep_trial(px, width, start, stop, ref, black, white, 1, 2,
+                shift_limit, left_pick, right_pick, &far);
+    if (!far.result) {
+        *e = far;
+        return;
+    }
+    sweep_trial(px, width, start, stop, ref, black, white, 1, 0,
+                shift_limit, left_pick, right_pick, e);
+    if (!e->result) return;
+    sweep_trial(px, width, start, stop, ref, black, white, 1, 1,
+                shift_limit, left_pick, right_pick, &mid);
+    if (!mid.result) {
+        e->result = false;
+        return;
+    }
+    int32_t shift = e->shift;
+    if (mid.shift > shift) shift = mid.shift;
+    if (far.shift > shift) shift = far.shift;
+    const int32_t picked_l = e->picked_l, picked_r = far.picked_r;
+    e->shift = shift;
+    e->picked_r = picked_r;
+    e->hyst = (picked_l && picked_r) ? 0x0E
+        : (picked_r ? 0x0D : (picked_l ? 0x0C : 0));
+}
+
 // _crc_stats_filter: most frequent CRC (first-seen tiebreak); a rival
 // with best <= 2*cnt kills everything; survivors share the modal CRC.
 inline int crc_stats_filter(SweepEntry* es, int n) {
@@ -4715,8 +4752,8 @@ int pcm_pick_cut_line(
 }
 
 // Full coordinate search for one line.  fmt 0 = pcm1, 1 = pcm16x0 (with
-// part 0..2).  out (int64[16]): found, start, stop, crc, hyst, shift,
-// picked_l, picked_r, words[0..7].
+// part 0..2, or 3: all three sublines).  out (int64[16]): found, start,
+// stop, crc, hyst, shift, picked_l, picked_r, words[0..7].
 int pcm_search_coordinates(
     const uint8_t* px, int64_t width, int64_t ds, int64_t de,
     int32_t ref, int32_t black, int32_t white, int32_t fmt, int32_t part,
@@ -4730,9 +4767,14 @@ int pcm_search_coordinates(
     for (int64_t so = ds - span; so <= ds + span; so += step) {
         int nr = 0;
         for (int64_t eo = de + span; eo >= de - span; eo -= step) {
-            sweep_trial(px, width, so, eo, ref, black, white, fmt, part,
-                        shift_limit, left_pick, right_pick,
-                        &rights[nr++]);
+            if (fmt == 1 && part == 3)
+                sweep_trial_all_parts(px, width, so, eo, ref, black,
+                                      white, shift_limit, left_pick,
+                                      right_pick, &rights[nr++]);
+            else
+                sweep_trial(px, width, so, eo, ref, black, white, fmt,
+                            part, shift_limit, left_pick, right_pick,
+                            &rights[nr++]);
         }
         SweepEntry& L = lefts[nl++];
         if (crc_stats_filter(rights, nr)) {

@@ -57,6 +57,8 @@ SPEC_PCM16X0_FULL = FormatSpec("pcm16x0", 193, 0, 193, 193, 34, 107,
                                ())  # coordinates cover the whole line
 # Per-part start bits within the 193-bit line (pcm16x0 fillPCM16X0).
 PCM16X0_PART_START = (0, 64, 129)
+# search_coordinates' `part` that reads all three PCM-16x0 sublines.
+ALL_PARTS = 3
 # ArVid Audio prototype (arvidline.h:36-51): 144 data bits, 18 x 8-bit
 # words, no CRC (the reference's CRC/sample paths are TODO stubs).
 SPEC_ARVID = FormatSpec("arvid", 144, 0, 144, 144, 24, 96, (8,) * 18)
@@ -443,6 +445,36 @@ def refine_failed_lines(lines, valid, coords, ref, black, white, fmt,
     return out
 
 
+def _trial_pcm16x0(pixels_line, start, stop, ref, black, white, width,
+                   shifts, part, preset):
+    """One sweep trial of PCM-16x0 subline `part`: the first valid shift
+    at depth 0, else the Bit Picker. -> (words, crc, valid, shift,
+    picked_l, picked_r). With ALL_PARTS, valid only where all three
+    sublines are: part 0's words and CRC, the largest of the three
+    shifts, part 0's left and part 2's right picked bits (part 2 read
+    first: its band of readable stops is the narrowest)."""
+    if part == ALL_PARTS:
+        args = (pixels_line, start, stop, ref, black, white, width, shifts)
+        far = _trial_pcm16x0(*args, 2, preset)
+        if not far[2]:
+            return far
+        words, crc_read, valid, s, picked_l, _ = _trial_pcm16x0(
+            *args, 0, preset)
+        if valid:
+            mid = _trial_pcm16x0(*args, 1, preset)
+            valid, s = mid[2], max(s, mid[3], far[3])
+        return words, crc_read, valid, s, picked_l, far[5]
+    words, crc_read, _calc, valid, _d, s = read_pcm_grid(
+        decode_trial_pcm16x0, pixels_line, start, stop, ref, black, white,
+        width, 0, shifts, part=part)
+    picked_l = picked_r = 0
+    if not valid:
+        words, crc_read, valid, picked_l, picked_r, _forced = \
+            pick_cut_bits_pcm16x0(words, crc_read, start, stop, width,
+                                  part, preset)
+    return words, crc_read, valid, s, picked_l, picked_r
+
+
 def search_coordinates(pixels_line, ref, black, white, width, fmt="pcm1",
                        history=None, part=0, bin_mode_shifts=SHIFT_STAGES_SAFE,
                        preset: BinPreset | None = None, max_ofs=None):
@@ -453,6 +485,19 @@ def search_coordinates(pixels_line, ref, black, white, width, fmt="pcm1",
     on the left axis.  max_ofs overrides the grid half-width (the
     periodic refresh sweeps a narrow window around the locked
     coordinates; callers fall back to the full width on a miss).
+
+    PCM-16x0 reads subline `part` (0..2) at each trial, or, with
+    part=ALL_PARTS, all three: a trial whose other sublines do not read
+    with a good CRC is a miss, as a failed part 0 is.  Part 0 (bits 0-63)
+    alone reads over a band of stop edges some 23 px wide (part 2's is
+    6-8 px), and the pick takes the band's middle, which moves 2 px later
+    for each px the start is early: at 7 px a bit, a start 2 px early
+    locks a stop 4-6 px late, where bits 129-192 are read nearly a bit
+    off.  The grid's PPB/2 steps still leave an ALL_PARTS pick 1-2 px
+    off, so it is swept again a pixel apart, two steps each way, unless
+    it lands on `history` (a lock such a pass found: a periodic refresh
+    that confirms it costs no second pass).  ALL_PARTS is the port's own;
+    the JAX package reads part 0.
     """
     preset = preset or BinPreset()
     spec = SPEC_PCM1 if fmt == "pcm1" else SPEC_PCM16X0_FULL
@@ -484,6 +529,23 @@ def search_coordinates(pixels_line, ref, black, white, width, fmt="pcm1",
     ppb0 = max((de - ds) * bz.INT_CALC_MULT // spec.bits_between
                // bz.INT_CALC_MULT, 1)
     step = max(ppb0 // step_div, 1)
+    args = (pixels_line, ref, black, white, width, fmt, part,
+            bin_mode_shifts, preset)
+    found = _search_grid(*args, ds, de, step, max_ofs)
+    if (found is not None and fmt == "pcm16x0" and part == ALL_PARTS
+            and (history is None
+                 or (found["start"], found["stop"]) != tuple(history))):
+        # The grid's steps are PPB/2 apart: sweep again a pixel apart,
+        # two steps each way of its pick.
+        found = _search_grid(*args, found["start"], found["stop"], 1,
+                             2 * step) or found
+    return found
+
+
+def _search_grid(pixels_line, ref, black, white, width, fmt, part,
+                 bin_mode_shifts, preset, ds, de, step, max_ofs):
+    """search_coordinates' grid about (ds, de), `max_ofs` steps of
+    `step` pixels each way: the picked entry, or None."""
     span = step * max_ofs
     from . import stitch_native as _nat
     if _nat.available():
@@ -515,18 +577,14 @@ def search_coordinates(pixels_line, ref, black, white, width, fmt="pcm1",
                 elif picked_l:
                     hyst_rank = 0x0C
             else:
-                words, crc_read, calc, valid, d, s = read_pcm_grid(
-                    decode_trial_pcm16x0, pixels_line, start_ofs, stop_ofs,
-                    ref, black, white, width, 0, bin_mode_shifts,
-                    part=part)
-                picked_l = picked_r = 0
-                if not valid:
-                    words, crc_read, valid, picked_l, picked_r, forced = \
-                        pick_cut_bits_pcm16x0(words, crc_read, start_ofs,
-                                              stop_ofs, width, part,
-                                              preset)
-                hyst_rank = d
-                if picked_r:
+                words, crc_read, valid, s, picked_l, picked_r = \
+                    _trial_pcm16x0(pixels_line, start_ofs, stop_ofs, ref,
+                                   black, white, width, bin_mode_shifts,
+                                   part, preset)
+                hyst_rank = 0   # one part picks one edge, ALL_PARTS both
+                if picked_l and picked_r:
+                    hyst_rank = 0x0E
+                elif picked_r:
                     hyst_rank = 0x0D
                 elif picked_l:
                     hyst_rank = 0x0C

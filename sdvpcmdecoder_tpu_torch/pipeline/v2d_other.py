@@ -26,12 +26,22 @@ pcm16x0_frame_decode); with `graphs` (the default) the port replays it
 as a CUDA graph from the thread's ops/round_graph.RoundGraphs
 (thread_graphs; the CPU's stand-in on the CPU), keyed by the format,
 the trial limits and the input shapes; graphs=False runs its ops
-eagerly.  One departure in the coordinate search: a first hit that no
+eagerly.  Two departures in the coordinate search.  A first hit that no
 other sample line confirms is not kept where the lines swept from their
-own edges find hits (_unseeded_hits).  `trace` is the utils.trace.Tracer its post-decode work adds to
-(a BatchDecoder passes its own): span `pcm_refine` (per-line refinement,
-the Bit Picker and the CRC re-check of each frame) and counter
-`count_pcm_refined_frames` (frames whose failed lines were refined).
+own edges find hits (_unseeded_hits).  And a PCM-16x0 sweep trial counts
+only where all three sublines read with a good CRC (ld.ALL_PARTS): the
+JAX package reads subline 0 alone, whose band of readable stop edges is
+wide enough that a start a pixel or two early locks a stop 4-6 px late
+and every frame's far sublines fail (ld.search_coordinates); a frame
+none of whose sample lines reads all three (a noisy one) is swept on
+subline 0, as there.  `trace` is the utils.trace.Tracer the driver adds
+to (a BatchDecoder passes its own): span `pcm_coord_search` (the sample
+lines' sweeps) and counter `count_pcm_coord_searches` (frames whose
+coordinates came from a sweep, narrow or full, and not from the locked
+history); span `pcm_refine` (per-line refinement, the Bit Picker and the
+CRC re-check of each frame) and counters `count_pcm_refined_frames`
+(frames whose failed lines were refined) and `count_pcm_refined_lines`
+(the lines, PCM-16x0 sublines, passed to the refinement).
 """
 from __future__ import annotations
 
@@ -83,6 +93,8 @@ class PCMFrameDriver:
         self.shift_limit = shift_limit
         self.hyst_limit = hyst_limit   # binarizer.h:235-241 depth sweep
         self.refine = refine            # normal/insane per-line sweep
+        # The sweep reads every PCM-16x0 subline (ld.ALL_PARTS).
+        self.sweep_part = ld.ALL_PARTS if fmt == "pcm16x0" else 0
         self.preset = preset or agc.BinPreset()
         if backend == "auto":
             from .batch_driver import resolve_auto_backend
@@ -177,30 +189,9 @@ class PCMFrameDriver:
                     else ld.PCM16X0_SEARCH_MAX_OFS
                 narrow = max(2, full // 3)
             self._frames_since_search = 0
-            hist = self._hist_coords()
-            hits = []
-            passes = (narrow, None) if narrow is not None else (None,)
-            seeded_from = None
-            for retry_ofs in passes:
-                for k in range(n_chk):
-                    sw = ld.search_coordinates(
-                        sample[f, k], ref, black, white, W, fmt=self.fmt,
-                        history=hist, preset=self.preset,
-                        bin_mode_shifts=self.shift_limit,
-                        max_ofs=retry_ofs)
-                    if sw is not None:
-                        hits.append((sw["start"], sw["stop"]))
-                        if hist is None and len(hits) == 1:
-                            # Seed further sample lines with the first
-                            # hit so their sweeps stay narrow.
-                            hist = hits[0]
-                            seeded_from = k
-                if hits or retry_ofs is None:
-                    break
-            if (seeded_from is not None and len(hits) == 1
-                    and seeded_from < n_chk - 1):
-                hits = self._unseeded_hits(sample[f], seeded_from, ref,
-                                           black, white, W) or hits
+            self.trace.count("count_pcm_coord_searches")
+            with self.trace.span("pcm_coord_search"):
+                hits = self._sweep(sample[f], ref, black, white, W, narrow)
             if hits:
                 hs = np.array(hits)
                 c = (_imed(hs[:, 0]), _imed(hs[:, 1]))
@@ -216,7 +207,46 @@ class PCMFrameDriver:
         return dict(coords=coords, refs=refs, blacks=blacks,
                     whites=whites, usable=usable)
 
-    def _unseeded_hits(self, lines, first, ref, black, white, W):
+    def _search(self, line, ref, black, white, W, history, part,
+                max_ofs=None):
+        return ld.search_coordinates(
+            line, ref, black, white, W, fmt=self.fmt, history=history,
+            part=part, preset=self.preset,
+            bin_mode_shifts=self.shift_limit, max_ofs=max_ofs)
+
+    def _sweep(self, lines, ref, black, white, W, narrow, part=None):
+        """The (start, stop) hits of one frame's sample lines: a narrow
+        sweep around the history first where `narrow` is given, the full
+        one where that finds nothing. Where no line reads all three
+        PCM-16x0 sublines (a frame too noisy for that), subline 0 alone,
+        as the JAX package reads."""
+        part = self.sweep_part if part is None else part
+        hist = self._hist_coords()
+        hits = []
+        passes = (narrow, None) if narrow is not None else (None,)
+        seeded_from = None
+        for retry_ofs in passes:
+            for k in range(len(lines)):
+                sw = self._search(lines[k], ref, black, white, W, hist,
+                                  part, retry_ofs)
+                if sw is not None:
+                    hits.append((sw["start"], sw["stop"]))
+                    if hist is None and len(hits) == 1:
+                        # Seed further sample lines with the first
+                        # hit so their sweeps stay narrow.
+                        hist = hits[0]
+                        seeded_from = k
+            if hits or retry_ofs is None:
+                break
+        if (seeded_from is not None and len(hits) == 1
+                and seeded_from < len(lines) - 1):
+            hits = self._unseeded_hits(lines, seeded_from, ref, black,
+                                       white, W, part) or hits
+        if not hits and part != 0:
+            hits = self._sweep(lines, ref, black, white, W, narrow, 0)
+        return hits
+
+    def _unseeded_hits(self, lines, first, ref, black, white, W, part):
         """The hits of sample lines `first + 1`.. swept from their own
         edges, as a first line is.
 
@@ -230,9 +260,7 @@ class PCMFrameDriver:
         unseeded, and their hits, if any, take the lone hit's place."""
         hits = []
         for k in range(first + 1, len(lines)):
-            sw = ld.search_coordinates(
-                lines[k], ref, black, white, W, fmt=self.fmt, history=None,
-                preset=self.preset, bin_mode_shifts=self.shift_limit)
+            sw = self._search(lines[k], ref, black, white, W, None, part)
             if sw is not None:
                 hits.append((sw["start"], sw["stop"]))
         return hits
@@ -334,6 +362,8 @@ class PCMFrameDriver:
             with self.trace.span("pcm_refine"):
                 if self.refine and not np.asarray(valid[f]).all():
                     self.trace.count("count_pcm_refined_frames")
+                    self.trace.count("count_pcm_refined_lines", int(
+                        (~np.asarray(valid[f], bool)).sum()))
                     rows = px_fetch(f)
                     fixed = ld.refine_failed_lines(
                         rows, valid[f], cds, ref, black, white, self.fmt,

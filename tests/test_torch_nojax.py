@@ -343,12 +343,16 @@ def test_native_sources_are_the_ports_own(monkeypatch, tmp_path):
     cli = importlib.import_module("sdvpcmdecoder_tpu_torch.__main__")
     assert getattr(importlib.import_module(module), attr) is cli.main
 
-    # The copy is still byte for byte the JAX package's native/; this
-    # check goes when the port's copy is first edited.
+    # loader.cpp is still byte for byte the JAX package's; stitchcore.cpp
+    # has the port's own PCM-16x0 sweep over all three sublines.
     jax_native = ROOT / "sdvpcmdecoder_tpu" / "native"
-    for name in ("stitchcore.cpp", "loader.cpp"):
-        assert hashlib.sha256((sn.NATIVE_SRC / name).read_bytes()).digest() \
-            == hashlib.sha256((jax_native / name).read_bytes()).digest()
+    digest = {name: [hashlib.sha256((d / name).read_bytes()).digest()
+                     for d in (sn.NATIVE_SRC, jax_native)]
+              for name in ("stitchcore.cpp", "loader.cpp")}
+    assert digest["loader.cpp"][0] == digest["loader.cpp"][1]
+    assert digest["stitchcore.cpp"][0] != digest["stitchcore.cpp"][1]
+    assert "sweep_trial_all_parts" in (sn.NATIVE_SRC
+                                       / "stitchcore.cpp").read_text()
 
 
 def test_no_source_imports_jax_or_the_jax_package():
